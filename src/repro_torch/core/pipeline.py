@@ -34,7 +34,13 @@ Layering (this module):
   (:meth:`FeatureExecutor.gather_device`). :meth:`FeatureExecutor.batches`
   keeps ``prefetch`` launches in flight; on int32 plans the code slices are
   staged in pinned memory and copied on a side stream, overlapping the
-  gather of the batch before.
+  gather of the batch before. Packed executors also push predicates down
+  (:meth:`FeatureExecutor.count_where`, ``filtered_rows``, ``batch_where``,
+  ``groupby_where``, ``agg_where``): a predicate compiles to code-space
+  terms over the column dictionaries, one scan kernel launch evaluates it
+  on the resident words and counts the matches, and the matches are
+  compacted on the device and gathered, or counted per code by the masked
+  histogram kernel.
 - :class:`FeaturePipeline` — the facade over both.
 
 Every launch goes through a hand-written CUDA kernel on a CUDA device; the
@@ -65,20 +71,41 @@ from typing import Iterator, Mapping
 import numpy as np
 import torch
 
+from repro_torch.columnar import query as colquery
 from repro_torch.columnar.bitpack import (bits_needed, pack_bits,
                                           packed_gather, packed_nbytes,
                                           unpack_bits)
+from repro_torch.columnar.dictionary import Dictionary
 from repro_torch.columnar.table import Table
 from repro_torch.core.adv import AugmentedDictionary
 from repro_torch.core.feature_spec import FeatureSet
 from repro_torch.kernels.adv_gather import ops as adv_ops
 from repro_torch.kernels.bitunpack.kernel import tpu_width
+from repro_torch.kernels.predicate_scan import ops as scan_ops
 
 
 def _pad32(n: int) -> int:
     """Round up to the word-alignment quantum: a row index that is a
     multiple of 32 is word-aligned at EVERY divisor width (32/db | 32)."""
     return ((max(n, 1) + 31) // 32) * 32
+
+
+def _agg_from_counts(d: Dictionary, counts: np.ndarray, agg: str) -> float:
+    """Dict-aware aggregate tail: a masked per-code histogram + the K
+    dictionary values give count/sum/mean without touching any row."""
+    counts = np.asarray(counts, np.float64)
+    n = float(counts.sum())
+    if agg == "count":
+        return n
+    if not d.is_numeric():
+        raise TypeError(f"{agg} requires a numeric dictionary "
+                        f"(column {d.name!r} is {d.values.dtype})")
+    s = float(np.dot(d.values.astype(np.float64), counts))
+    if agg == "sum":
+        return s
+    if agg == "mean":
+        return s / n if n else float("nan")
+    raise ValueError(f"unknown agg {agg!r}")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -146,6 +173,7 @@ class FeaturePlan:
         self.augmented = augmented if augmented is not None \
             else features.build(table)
         self.packed = packed
+        self.dictionaries = None       # reference plans only: see augmented
         self.stats = _new_stats()
         self.plans: list[ColumnPlan] = []
         for column, aug in self.augmented.items():
@@ -257,7 +285,7 @@ class FeaturePlan:
         """
         if self.augmented is None:
             raise RuntimeError("a plan built from reference state has no "
-                               "dictionaries to refresh")
+                               "ADVs to refresh")
         fresh = None
         if new_codes is not None:          # validate BEFORE mutating anything
             missing = [c for c in self.columns if c not in new_codes]
@@ -341,7 +369,13 @@ def plan_from_reference(state: Mapping, device=None) -> FeaturePlan:
     ``packed_words`` (uint32 device-width streams), ``device_bits``,
     ``fused_host`` ((K_c, F_c) float32 tables) and ``cards`` (K_c). Serving
     from it reproduces exactly that state — the counterpart of loading a
-    model's weights. The plan has no dictionaries, so it cannot refresh.
+    model's weights. An optional ``dictionaries`` entry holds, for every
+    column, a mapping with the dictionary's ``values`` in code order and
+    whether they are ``sorted``; the plan builds its own
+    :class:`Dictionary` objects from it (counts taken from the carried
+    codes), which predicate pushdown compiles predicates over. Without it
+    the plan serves features but refuses pushdown. It has no ADVs, so it
+    cannot refresh.
     """
     columns = list(state["columns"])
     words = [np.asarray(w, np.uint32) for w in state["packed_words"]]
@@ -362,9 +396,19 @@ def plan_from_reference(state: Mapping, device=None) -> FeaturePlan:
         if w.shape[0] * (32 // db) < n_rows:
             raise ValueError(f"column {c}: {w.shape[0]} words hold fewer "
                              f"than {n_rows} rows")
+    dicts = state.get("dictionaries")
+    if dicts is not None:
+        if len(dicts) != len(columns) or not all(
+                isinstance(d, Mapping) and {"values", "sorted"} <= d.keys()
+                for d in dicts):
+            raise ValueError("reference state needs one {values, sorted} "
+                             "dictionary mapping per column")
+        dicts = {c: _reference_dictionary(c, d, k, w, db, n_rows)
+                 for c, d, k, w, db in zip(columns, dicts, cards, words, dbs)}
     plan = FeaturePlan.__new__(FeaturePlan)
     plan.device = resolve_device(device)
     plan.table = plan.features = plan.augmented = None
+    plan.dictionaries = dicts
     plan.packed = True
     plan.stats = _new_stats()
     plan.plans = [ColumnPlan(column=c, adv_names=[], fused_host=t,
@@ -377,6 +421,21 @@ def plan_from_reference(state: Mapping, device=None) -> FeaturePlan:
     plan.packed_versions = [0] * len(columns)
     plan._fused = None
     return plan
+
+
+def _reference_dictionary(column: str, entry: Mapping, k: int,
+                          words: np.ndarray, db: int,
+                          n_rows: int) -> Dictionary:
+    """A column's :class:`Dictionary` from reference state: its values in
+    code order and whether codes follow value order; the per-code counts
+    are those of the carried code stream."""
+    values = np.asarray(entry["values"])
+    if values.ndim != 1 or values.shape[0] != k:
+        raise ValueError(f"column {column}: {values.shape} dictionary "
+                         f"values for cardinality {k}")
+    counts = np.bincount(unpack_bits(words, db, n_rows), minlength=k)
+    return Dictionary(values=values, counts=counts, name=column,
+                      sorted_codes=bool(entry["sorted"]))
 
 
 class FeatureExecutor:
@@ -400,11 +459,19 @@ class FeatureExecutor:
         self.prefetch = prefetch
         self.packed = plan.packed
         self.device = plan.device
+        # compiled-predicate cache: a deployed filter family scans on every
+        # request, so the code-set compile and the device put of the term
+        # table must not repeat per call (keyed also by the dictionaries'
+        # cardinalities: appends that grow a dictionary can change what a
+        # value predicate matches)
+        self._pred_cache: dict = {}
         if self.packed:
             # ONE flat device-resident stream holds every column's words
-            # (column c's start in row c of _wmeta, beside its width)
+            # (column c's start in row c of _wmeta, beside its width; the
+            # starts also on the host in _word_offs)
             self._flat_words: torch.Tensor | None = None
             self._wmeta: torch.Tensor | None = None
+            self._word_offs: tuple[int, ...] = ()
             self._words_sig: tuple | None = None
             self._capacity = 0
             self.ensure_range_capacity(plan.n_rows)
@@ -454,6 +521,7 @@ class FeatureExecutor:
         flat = (np.concatenate(parts) if parts else np.zeros(0, np.uint32))
         self._flat_words = to_device(flat.view(np.int32), self.device)
         self._wmeta = adv_ops.word_meta(offs, plan.device_bits, self.device)
+        self._word_offs = tuple(offs)
         self._words_sig = sig
         plan.stats["words_put"] += 1
 
@@ -529,6 +597,124 @@ class FeatureExecutor:
                                  self.device)
         return adv_ops.adv_gather_packed_rows(
             self._flat_words, self._wmeta, self.plan.fused_tables(), dev_rows)
+
+    # -- predicate pushdown: scan -> compact -> gather on resident words ----------
+    def _dictionary(self, column: str) -> Dictionary:
+        """Column ``column``'s dictionary, for a plan built from a table (its
+        ADVs' dictionaries) or from reference state (the dictionaries the
+        state carried)."""
+        plan = self.plan
+        if column not in plan.columns:
+            raise KeyError(f"column {column!r} not in plan ({plan.columns})")
+        if plan.augmented is not None:
+            return plan.augmented[column].dictionary
+        d = (plan.dictionaries or {}).get(column)
+        if d is None:
+            raise RuntimeError(
+                f"column {column!r} has no dictionary: this plan was built "
+                "from reference state without 'dictionaries', and predicate "
+                "pushdown compiles each predicate over the column "
+                "dictionaries")
+        return d
+
+    def _scan_terms(self, pred) -> tuple[tuple, str]:
+        """Compile a value-space predicate to device scan terms: each leaf
+        runs once over its column's K dictionary entries, and column names
+        resolve to this plan's resident stream slots."""
+        if not self.packed:
+            raise RuntimeError("predicate pushdown runs on packed plans "
+                               "only; int32 plans filter host-side")
+        cols = self.plan.columns
+        cp = colquery.compile_predicate(
+            pred, {c: self._dictionary(c) for c in cols})
+        slot = {c: i for i, c in enumerate(cols)}
+        terms = tuple(scan_ops.ScanTerm(col=slot[t.column], kind=t.kind,
+                                        lo=t.lo, hi=t.hi, lut=t.lut)
+                      for t in cp.terms)
+        return terms, cp.combine
+
+    def _compiled_pred(self, pred):
+        """(terms, combine, packed device term table) for a predicate,
+        cached. The key includes every dictionary's cardinality:
+        dictionaries only ever grow, and a grown dictionary can change a
+        value predicate's matching code set."""
+        key = (pred, tuple(self._dictionary(c).cardinality
+                           for c in self.plan.columns))
+        hit = self._pred_cache.get(key)
+        if hit is None:
+            terms, combine = self._scan_terms(pred)
+            packed = scan_ops.pack_terms(terms, self.plan.device_bits,
+                                         self.device)
+            hit = self._pred_cache[key] = (terms, combine, packed)
+        return hit
+
+    def _mask_count_future(self, pred) -> tuple[torch.Tensor, torch.Tensor]:
+        """(mask, count) on the device from ONE scan launch over the
+        resident stream, read in place: no code stream and no per-query
+        copy of the used columns exists anywhere."""
+        _, combine, packed = self._compiled_pred(pred)
+        self.ensure_range_capacity(self.plan.n_rows)
+        return scan_ops.predicate_scan(self._flat_words, self._wmeta, packed,
+                                       self.plan.n_rows, combine)
+
+    def predicate_mask(self, pred) -> torch.Tensor:
+        """(n_rows,) bool device mask for a value-space predicate."""
+        return self._mask_count_future(pred)[0]
+
+    def count_where(self, pred) -> int:
+        """SELECT COUNT(*) WHERE pred — one scan launch, one scalar sync."""
+        return int(self._mask_count_future(pred)[1])
+
+    def filtered_rows(self, pred) -> np.ndarray:
+        """Matching row indices (ascending int64), compacted on the
+        device."""
+        mask, cnt_dev = self._mask_count_future(pred)
+        cnt = int(cnt_dev)             # one scalar sync: the static length
+        if cnt == 0:
+            return np.zeros(0, np.int64)
+        rows = scan_ops.compact_rows(mask, _pad32(cnt))
+        return rows[:cnt].cpu().numpy().astype(np.int64)
+
+    def batch_where(self, pred) -> tuple[np.ndarray, torch.Tensor]:
+        """Filtered featurization: scan -> compact -> rows gather, all
+        against the resident stream. Returns (rows, features) for the
+        matching rows in ascending row order. The ONE host sync before the
+        gather is the match count (the compaction's static length); the
+        compacted index vector feeds the gather without visiting the
+        host."""
+        mask, cnt_dev = self._mask_count_future(pred)
+        cnt = int(cnt_dev)
+        if cnt == 0:
+            return (np.zeros(0, np.int64),
+                    torch.zeros((0, self.plan.out_dim), dtype=torch.float32,
+                                device=self.device))
+        rows_dev = scan_ops.compact_rows(mask, _pad32(cnt))
+        feats = self._rows_future(rows_dev)     # device-to-device indices
+        return rows_dev[:cnt].cpu().numpy().astype(np.int64), feats[:cnt]
+
+    def _masked_counts_from(self, column: str,
+                            mask: torch.Tensor) -> torch.Tensor:
+        """(K,) per-code counts of ``column`` under a device mask."""
+        d = self._dictionary(column)
+        ci = self.plan.columns.index(column)
+        return scan_ops.masked_counts(
+            self._flat_words, self._word_offs[ci], self.plan.device_bits[ci],
+            mask, d.cardinality, self.plan.n_rows)
+
+    def groupby_where(self, column: str,
+                      pred) -> tuple[np.ndarray, np.ndarray]:
+        """GROUP BY column COUNT(*) WHERE pred — masked histogram over the
+        resident words; returns (values, counts) like ``groupby_count``."""
+        counts = self._masked_counts_from(column, self.predicate_mask(pred))
+        return (self._dictionary(column).values,
+                counts.cpu().numpy().astype(np.int64))
+
+    def agg_where(self, pred, column: str, agg: str = "count") -> float:
+        """Masked count/sum/mean of ``column`` under ``pred`` — K-entry
+        dictionary tail work on top of the device masked histogram."""
+        counts = self._masked_counts_from(column, self.predicate_mask(pred))
+        return _agg_from_counts(self._dictionary(column),
+                                counts.cpu().numpy(), agg)
 
     # -- single batch -------------------------------------------------------------
     def slice_codes(self, row_idx: np.ndarray) -> np.ndarray:

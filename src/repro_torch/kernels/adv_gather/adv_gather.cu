@@ -36,6 +36,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../packed_code.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;                 // 8 warps, one row each
@@ -62,22 +64,6 @@ __device__ __forceinline__ float lookup(const float* __restrict__ tables,
   code = code < 0 ? 0 : (code > m.limit ? m.limit : code);
   return __ldg(tables + (long long)m.base + (long long)code * m.dim +
                (j - m.col_off));
-}
-
-// Code of table row r in the column whose words start at word_off, packed
-// at db bits (db divides 32, so no field straddles a word). The word index
-// is clamped to the stream: an index past the end never reads out of
-// bounds (callers keep rows inside the stream's capacity).
-__device__ __forceinline__ int packed_code(const uint32_t* __restrict__ words,
-                                           long long n_words, int word_off,
-                                           int db, long long r) {
-  if (r < 0) r = 0;
-  const int s = 32 / db;
-  long long widx = word_off + r / s;
-  if (widx > n_words - 1) widx = n_words - 1;
-  uint32_t field = __ldg(words + widx) >> ((int)(r % s) * db);
-  if (db < 32) field &= (1u << db) - 1u;
-  return (int)field;
 }
 
 // One output row from packed words: lanes stride over the columns.

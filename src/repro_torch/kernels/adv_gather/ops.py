@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.adv_gather import ref
+from repro_torch.kernels.launch import check, device_kind, raise_on, stream_ptr
 
 LAUNCHES = {"adv_gather_packed_rows": 0, "adv_gather_packed": 0,
             "gather_fused_parts": 0}
@@ -115,33 +116,18 @@ def word_meta(word_offs, dbs, device) -> torch.Tensor:
 # -- argument checks ------------------------------------------------------------
 
 
-def _check(name: str, t: torch.Tensor, dtype, ndim: int,
-           device: torch.device) -> None:
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if t.dim() != ndim:
-        raise ValueError(f"{name} must be {ndim}-D, got shape "
-                         f"{tuple(t.shape)}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check_fused(fused: FusedTables, device: torch.device) -> None:
-    _check("fused.tables", fused.tables, torch.float32, 1, device)
-    _check("fused.meta", fused.meta, torch.int32, 2, device)
-    _check("fused.col_of", fused.col_of, torch.int32, 1, device)
+    check("fused.tables", fused.tables, torch.float32, 1, device)
+    check("fused.meta", fused.meta, torch.int32, 2, device)
+    check("fused.col_of", fused.col_of, torch.int32, 1, device)
     if fused.meta.shape != (fused.n_tables, 4) or \
             fused.col_of.shape[0] != fused.out_dim:
         raise ValueError("fused table metadata does not match its dims")
 
 
 def _check_words(flat_words, wmeta, fused, device) -> None:
-    _check("flat_words", flat_words, torch.int32, 1, device)
-    _check("wmeta", wmeta, torch.int32, 2, device)
+    check("flat_words", flat_words, torch.int32, 1, device)
+    check("wmeta", wmeta, torch.int32, 2, device)
     if wmeta.shape != (fused.n_tables, 2):
         raise ValueError(f"wmeta must be ({fused.n_tables}, 2), got "
                          f"{tuple(wmeta.shape)}")
@@ -149,30 +135,8 @@ def _check_words(flat_words, wmeta, fused, device) -> None:
         raise ValueError("flat_words is empty")
 
 
-def _stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 def _lib() -> ctypes.CDLL:
     return build.load("adv_gather", _SIGNATURES)
-
-
-def _raise_on(err: int, lib: ctypes.CDLL, name: str) -> None:
-    if err:
-        msg = lib.adv_gather_error_string(err).decode()
-        raise RuntimeError(f"{name}: kernel launch failed: {msg} "
-                           f"(cudaError {err})")
-
-
-def _device_kind(device: torch.device) -> str:
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {device}")
-    if device.type == "cuda" and device.index not in (None, 0):
-        # the launchers run on their own (static) CUDA runtime, whose
-        # current device is 0 in every thread; multi-device serving must
-        # pass the device into the launcher first
-        raise ValueError(f"the kernels launch on cuda:0 only, got {device}")
-    return device.type
 
 
 # -- kernel 1: packed rows ----------------------------------------------------------
@@ -191,21 +155,22 @@ def adv_gather_packed_rows(flat_words: torch.Tensor, wmeta: torch.Tensor,
     scales with the request is the index vector.
     """
     device = rows.device
-    _check("rows", rows, torch.int32, 1, device)
+    check("rows", rows, torch.int32, 1, device)
     _check_fused(fused, device)
     _check_words(flat_words, wmeta, fused, device)
-    if _device_kind(device) == "cpu":
+    if device_kind(device) == "cpu":
         return ref.adv_gather_packed_rows_ref(flat_words, wmeta, fused, rows)
     n = rows.shape[0]
     out = torch.empty((n, fused.out_dim), dtype=torch.float32, device=device)
     if n == 0 or fused.out_dim == 0:
         return out
     lib = _lib()
-    _raise_on(lib.adv_gather_packed_rows(
+    raise_on(lib.adv_gather_packed_rows(
         rows.data_ptr(), n, flat_words.data_ptr(), flat_words.numel(),
         wmeta.data_ptr(), fused.meta.data_ptr(), fused.col_of.data_ptr(),
         fused.tables.data_ptr(), out.data_ptr(), fused.out_dim,
-        _stream_ptr(device)), lib, "adv_gather_packed_rows")
+        stream_ptr(device)),
+        lib.adv_gather_error_string, "adv_gather_packed_rows")
     LAUNCHES["adv_gather_packed_rows"] += 1
     return out
 
@@ -224,7 +189,7 @@ def adv_gather_packed(flat_words: torch.Tensor, wmeta: torch.Tensor,
     reads whatever words the rows map to.
     """
     device = starts.device
-    _check("starts", starts, torch.int32, 1, device)
+    check("starts", starts, torch.int32, 1, device)
     _check_fused(fused, device)
     _check_words(flat_words, wmeta, fused, device)
     k = starts.shape[0]
@@ -232,7 +197,7 @@ def adv_gather_packed(flat_words: torch.Tensor, wmeta: torch.Tensor,
         raise ValueError(f"batch must be in [1, 2**31), got {batch}")
     if k > 65535:
         raise ValueError(f"at most 65535 ranges per launch, got {k}")
-    if _device_kind(device) == "cpu":
+    if device_kind(device) == "cpu":
         return ref.adv_gather_packed_ref(flat_words, wmeta, fused, starts,
                                          batch)
     out = torch.empty((k * batch, fused.out_dim), dtype=torch.float32,
@@ -240,12 +205,12 @@ def adv_gather_packed(flat_words: torch.Tensor, wmeta: torch.Tensor,
     if k == 0 or fused.out_dim == 0:
         return out
     lib = _lib()
-    _raise_on(lib.adv_gather_packed(
+    raise_on(lib.adv_gather_packed(
         starts.data_ptr(), k, batch, flat_words.data_ptr(),
         flat_words.numel(), wmeta.data_ptr(), fused.meta.data_ptr(),
         fused.col_of.data_ptr(), fused.tables.data_ptr(), out.data_ptr(),
-        fused.out_dim, _stream_ptr(device)), lib,
-        "adv_gather_packed")
+        fused.out_dim, stream_ptr(device)),
+        lib.adv_gather_error_string, "adv_gather_packed")
     LAUNCHES["adv_gather_packed"] += 1
     return out
 
@@ -261,22 +226,22 @@ def gather_fused_parts(fused: FusedTables,
     rows), matching the reference's clamp before its kernel.
     """
     device = codes.device
-    _check("codes", codes, torch.int32, 2, device)
+    check("codes", codes, torch.int32, 2, device)
     _check_fused(fused, device)
     if codes.shape[0] != fused.n_tables:
         raise ValueError(f"expected {fused.n_tables} code rows, got "
                          f"{codes.shape[0]}")
-    if _device_kind(device) == "cpu":
+    if device_kind(device) == "cpu":
         return ref.gather_fused_parts_ref(fused, codes)
     n = codes.shape[1]
     out = torch.empty((n, fused.out_dim), dtype=torch.float32, device=device)
     if n == 0 or fused.out_dim == 0:
         return out
     lib = _lib()
-    _raise_on(lib.gather_fused_parts(
+    raise_on(lib.gather_fused_parts(
         codes.data_ptr(), n, fused.meta.data_ptr(), fused.col_of.data_ptr(),
         fused.tables.data_ptr(), out.data_ptr(), fused.out_dim,
-        _stream_ptr(device)),
-        lib, "gather_fused_parts")
+        stream_ptr(device)),
+        lib.adv_gather_error_string, "gather_fused_parts")
     LAUNCHES["gather_fused_parts"] += 1
     return out

@@ -3,9 +3,10 @@
 Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C interface, loaded with :mod:`ctypes`. Libraries go to
 ``build/torch_ext/`` at the root of the checkout (listed in ``.gitignore``),
-named by a hash of the source and the flags, so an edited source rebuilds
-and an unchanged one is reused. A library is written under a temporary name
-and renamed into place, so concurrent builders never load a partial file.
+named by a hash of the source, the shared headers and the flags, so an
+edited source or header rebuilds and an unchanged one is reused. A library
+is written under a temporary name and renamed into place, so concurrent
+builders never load a partial file.
 
 Nothing here runs at import time: the wrappers call :func:`load` when they
 first launch a kernel.
@@ -20,9 +21,11 @@ import subprocess
 import time
 from pathlib import Path
 
+_HERE = Path(__file__).resolve().parent
 SOURCES = {
-    "adv_gather": Path(__file__).resolve().parent / "adv_gather"
-    / "adv_gather.cu",
+    "adv_gather": _HERE / "adv_gather" / "adv_gather.cu",
+    "predicate_scan": _HERE / "predicate_scan" / "predicate_scan.cu",
+    "hist": _HERE / "hist" / "hist.cu",
 }
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -48,9 +51,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SOURCES[name]
+    """The library's path, named by a hash of its source, the headers the
+    sources share (``kernels/*.cuh``) and the flags."""
+    text = SOURCES[name].read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(_HERE.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -20,6 +20,11 @@ traffic is the padded (coalesce x bucket) int32 index vector.
 ``stats['bytes_h2d']`` therefore reports INDEX bytes; int32 plans ship
 (C, bucket) code slices through the int32 kernel and account those.
 
+``submit(where=predicate)`` serves the rows a predicate selects: the scan
+kernel finds them on the resident words, and they are pumped like any
+explicit request. ``count_where``, ``filtered_rows``, ``groupby_where`` and
+``agg_where`` answer pushdown queries directly, without the pump.
+
 Each launch copies its features into a pinned host buffer asynchronously
 and records a CUDA event behind the copy; retiring a launch waits on that
 event (``Event.query()`` first, blocking only when the copy is not yet
@@ -134,7 +139,8 @@ class FeatureService:
         self.stats = {"requests": 0, "rows": 0, "padded_rows": 0,
                       "batches": 0, "launches": 0, "max_inflight": 0,
                       "latency_s_total": 0.0, "completed": 0,
-                      "bytes_h2d": 0, "failed_tickets": 0, "timeouts": 0}
+                      "bytes_h2d": 0, "failed_tickets": 0, "timeouts": 0,
+                      "filtered_requests": 0}
         # conditions over ONE lock, so each event wakes only the threads
         # that care:
         #   _work — the pump sleeps here; submits that queued work (and
@@ -206,7 +212,8 @@ class FeatureService:
             self._work.notify_all()
 
     # -- requests -------------------------------------------------------------------
-    def submit(self, rows: np.ndarray, deadline_ms: float | None = None) -> int:
+    def submit(self, rows: np.ndarray | None = None, *, where=None,
+               deadline_ms: float | None = None) -> int:
         """Enqueue a featurization request; returns a ticket for the result.
 
         Only queues: the pump picks the chunks up, coalesces them with other
@@ -215,9 +222,25 @@ class FeatureService:
         queue: chunks still QUEUED once it expires are dropped before launch
         and the ticket resolves to :class:`DeadlineExceeded` (chunks already
         in flight retire normally).
+
+        ``where=<predicate>`` (instead of ``rows``) is the pushdown form:
+        the matching rows are found by the scan kernel over the resident
+        words (:meth:`FeatureExecutor.filtered_rows`) and then pumped
+        through the same coalescing launch path as explicit rows — "serve
+        features WHERE ..." as one ticket. An empty selection resolves at
+        once to a (0, out_dim) result without reaching the pump.
         """
         if deadline_ms is not None and deadline_ms <= 0:
             raise ValueError("deadline_ms must be > 0")
+        filtered = where is not None
+        if filtered:
+            if rows is not None:
+                raise ValueError("pass rows OR where, not both")
+            rows = self._pushdown_ex().filtered_rows(where)
+            if rows.size == 0:
+                return self._resolved_empty_ticket()
+        elif rows is None:
+            raise ValueError("need rows or where")
         rows = np.asarray(rows, dtype=np.int64).reshape(-1)
         if rows.size == 0:
             raise ValueError("empty request")
@@ -241,6 +264,7 @@ class FeatureService:
             if deadline_ms is not None:
                 self._deadlines[ticket] = now + deadline_ms / 1e3
             self.stats["requests"] += 1
+            self.stats["filtered_requests"] += filtered
             self.stats["rows"] += rows.size
             self.stats["padded_rows"] += padded
             self._chunks_total[ticket] = len(pieces)
@@ -255,6 +279,24 @@ class FeatureService:
             # mid-group ride the pending tick
             if n0 == 0 or n0 < self.coalesce <= len(self._queue):
                 self._work.notify_all()
+            return ticket
+
+    def _resolved_empty_ticket(self) -> int:
+        """A filtered request that matched no row: a ticket whose (0, F)
+        result is already on the host (poll/result look at the results
+        before the chunk ledger, so the pump is not involved)."""
+        with self._lock:
+            self._check_pump()
+            if self._shutdown:
+                raise RuntimeError("service is shut down")
+            ticket = self._next_ticket
+            self._next_ticket += 1
+            self.stats["requests"] += 1
+            self.stats["filtered_requests"] += 1
+            self.stats["completed"] += 1
+            self._results[ticket] = np.zeros((0, self.plan.out_dim),
+                                             np.float32)
+            self._cv.notify_all()
             return ticket
 
     def _bucket(self, n: int) -> int:
@@ -643,6 +685,29 @@ class FeatureService:
                 del self._errors[t]
         out.update(errs)
         return out
+
+    # -- predicate pushdown queries (no pump involvement) -----------------------
+    def _pushdown_ex(self) -> FeatureExecutor:
+        if not self.packed:
+            raise RuntimeError("predicate pushdown needs a packed plan "
+                               "(resident word streams)")
+        return self._executor
+
+    def filtered_rows(self, where) -> np.ndarray:
+        """Matching row indices via the device predicate scan."""
+        return self._pushdown_ex().filtered_rows(where)
+
+    def count_where(self, where) -> int:
+        """SELECT COUNT(*) WHERE — one scan launch."""
+        return self._pushdown_ex().count_where(where)
+
+    def groupby_where(self, column: str, where):
+        """GROUP BY column COUNT(*) WHERE — masked device histogram."""
+        return self._pushdown_ex().groupby_where(column, where)
+
+    def agg_where(self, where, column: str, agg: str = "count") -> float:
+        """Masked count/sum/mean of ``column`` under a predicate."""
+        return self._pushdown_ex().agg_where(where, column, agg)
 
     # -- reporting --------------------------------------------------------------
     def latency_percentile(self, q: float) -> float:

@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain PyTorch versions, on a card.
+"""The CUDA kernels against their plain PyTorch versions, on a card: the
+three ADV gathers, the predicate scan and the masked counts.
 
 Needs a CUDA device and ``nvcc`` (the kernels build at first use); every
 test skips without a card. Imports neither JAX nor the reference package,
@@ -10,9 +11,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import edge_cases
 from repro_torch.kernels.adv_gather import ops, ref
+from repro_torch.kernels.hist import ops as hist_ops
+from repro_torch.kernels.hist import ref as hist_ref
+from repro_torch.kernels.predicate_scan import ops as scan_ops
+from repro_torch.kernels.predicate_scan import ref as scan_ref
 
-DBS = (1, 2, 4, 8, 16, 32)
+DBS = edge_cases.DBS
 CARDS = (2, 3, 11, 200, 3000, 1000)    # most below 2**db: codes clamp
 DIMS = (1, 3, 2, 5, 2, 1)
 CAP = 1024
@@ -68,3 +74,45 @@ def test_wrappers_reject_mixed_devices(cuda):
     fused = ops.fuse_tables([np.ones((3, 2), np.float32)], cuda)
     with pytest.raises(ValueError):
         ops.gather_fused_parts(fused, torch.zeros((1, 4), dtype=torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combine", ["and", "or"])
+def test_scan_kernel_matches_plain_version_on_card(cuda, combine):
+    """Terms of both kinds at every width, two on one column, a LUT
+    shorter than the codes (the clamp), empty and full selections, n off
+    every multiple of 4 and 32 against a longer stream: mask and count equal
+    the plain version's, and each launch is counted once."""
+    rng = np.random.default_rng(3)
+    flat, wmeta, _ = edge_cases.random_stream(rng, CAP, cuda)
+    for terms in edge_cases.scan_term_sets(rng):
+        packed = scan_ops.pack_terms(terms, DBS, cuda)
+        for n in (1, 3, 31, 997, CAP - 5, CAP):
+            before = scan_ops.LAUNCHES["predicate_scan"]
+            mask, count = scan_ops.predicate_scan(flat, wmeta, packed, n,
+                                                  combine)
+            want, want_count = scan_ref.predicate_scan_ref(flat, wmeta,
+                                                           packed, n, combine)
+            torch.cuda.synchronize()
+            assert mask.is_cuda and mask.dtype == torch.bool
+            assert torch.equal(mask, want)
+            assert int(count) == int(want_count) == int(want.sum())
+            assert scan_ops.LAUNCHES["predicate_scan"] == before + 1
+
+
+@pytest.mark.cuda
+def test_masked_counts_kernel_matches_plain_version_on_card(cuda):
+    """Every width; k = 1, k below the codes (dropped), k in shared memory
+    up to its limit and k past it (global counters); all-false, all-true
+    and random masks; n off every multiple of 4."""
+    cases, masks = edge_cases.masked_counts_cases(
+        np.random.default_rng(4), CAP, cuda)
+    for words, off, db, k in cases:
+        for mask in masks:
+            for n in (CAP - 3, CAP):
+                before = hist_ops.LAUNCHES["masked_counts"]
+                got = hist_ops.masked_counts(words, off, db, mask, k, n)
+                want = hist_ref.masked_counts_ref(words, off, db, mask, k, n)
+                torch.cuda.synchronize()
+                assert got.is_cuda and torch.equal(got, want)
+                assert hist_ops.LAUNCHES["masked_counts"] == before + 1
