@@ -10,14 +10,23 @@ checkout's sources (into build/torch_ext/) and needs one card. Phases:
    time, and the host build of the serving table: the columns and features
    of ``benchmarks/bench_featurize.py`` (age/state/income/device; out_dim
    58; device widths 8/8/8/2) at 2**25 rows, a user table a feature store
-   serves, made from ``--seed``.
-2. kernels vs plain — each of the five CUDA kernels (three ADV gathers,
-   the predicate scan, the masked counts) against its plain PyTorch version
-   on the card, bit for bit, at the shapes the main path gives it and on
-   an edge-case set (widths 1-32, codes past every table, rows past the
-   stream, n off every multiple of 32, empty and full selections, LUT
-   clamps, k = 1, codes >= k, k past the shared-memory counters); median
-   times of both, the kernels' both back to back and after an L2 flush.
+   serves, made from ``--seed``; then the train path's int32 plan over the
+   same table with ``benchmarks/bench_pipeline.py``'s FeatureSet (out_dim
+   4) and its label rule (noise from ``--seed``).
+2. kernels vs plain — each of the seven CUDA kernels (three ADV gathers,
+   the predicate scan, the masked counts, the one-hot wide layer and its
+   gradient) against its plain PyTorch version on the card, at the shapes
+   the main paths give it and on an edge-case set (widths 1-32, codes past
+   every table, rows past the stream, n off every multiple of 32, empty and
+   full selections, LUT clamps, k = 1, codes >= k, k past the shared-memory
+   counters; for the wide layer C in {0, 1, 8}, N in {0, 1, 33, 1024}, K
+   in {1, 4, 600, 65537}, F in {1, 129}, codes -1, K, 2**31 - 1, -2**31,
+   bf16). Bit for bit, except the wide gradient (float atomics), which is
+   held to the float32 bound of two summation orders. Median times of
+   both, the kernels' both back to back and after an L2 flush, and for the
+   wide layer the one PyTorch call that computes the same function
+   (``embedding_bag`` and its backward), also at the JAX sweep's largest
+   shape (2, 256, 600, 128).
 3. serving path — with every launch count set to 0 first: a FeatureService
    over the packed plan serves 4,096 requests of 128/256/512 uniform random
    rows; FeatureExecutor.batches(4096) serves 64 block-shuffled range
@@ -33,7 +42,24 @@ checkout's sources (into build/torch_ext/) and needs one card. Phases:
    (``query.predicate_mask_host``, ``np.bincount`` over the host codes,
    ``host_features``), whose time is printed beside the card's; the scan
    and the masked counts must have launched.
-5. report — one JSON line per the kernel table, the nvidia-smi line, and
+5. train path (paper Fig 1/2) — launch counts set to 0 again;
+   ``bench_pipeline.py`` at full width on the same table: Wide&Deep
+   (wide ``state``/``device``, embedded ``state``, hidden (32, 16)), lr
+   0.1, batch 1,024. Its ADV and traditional (decode, CSV, parse, ship
+   f32) loops, 8 steps each, with walls and host->device bytes; 500 ADV
+   steps (steps/s, rows/s, the kernels' share of the wall); the first 200
+   of them again on the CPU through the plain versions, each from the
+   card's parameters before it and on its batch: losses within
+   1e-5 x max(1, |loss|) and parameters after it within allclose(rtol=1e-4,
+   atol=1e-6), every step. A CPU run free from the same initial parameters
+   is printed beside it, not gated, with the CPU's own split from a
+   one-rounding nudge (ReLU kinks part float32 trajectories). The int32
+   gather, the wide layer and its gradient must have launched.
+6. analytics cycle (paper §7) — ``examples/analytics_cycle.py`` through
+   the port on the card at its own sizes and seeds; its two checks (round 2
+   within 1.2x of round 1, purity > 0.75) must hold. Its models have no
+   wide columns, so no kernel launches, which is checked.
+7. report — one JSON line per the kernel table, the nvidia-smi line, and
    last ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits nonzero before the last line. Without CUDA, or
@@ -42,6 +68,7 @@ without the package beside this script, it exits nonzero at once.
 from __future__ import annotations
 
 import argparse
+import io
 import json
 import statistics
 import subprocess
@@ -55,21 +82,27 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM published peak
+FP32_OPS_PER_S = 67e12             # H100 SXM float32 outside the tensor cores
 SPIN_CYCLES = 50_000_000           # ~25 ms at 2 GHz: covers 50 launches
 COLD_SPIN_CYCLES = 2_000_000       # ~1 ms: covers one launch and a flush
 L2_FLUSH_BYTES = 128 << 20         # written before each cold launch
 ADV_SOURCE = "src/repro_torch/kernels/adv_gather/adv_gather.cu"
+WIDE_SOURCE = "src/repro_torch/kernels/onehot_wide/onehot_wide.cu"
 SOURCES = {"adv_gather_packed_rows": ADV_SOURCE,
            "adv_gather_packed": ADV_SOURCE,
            "gather_fused_parts": ADV_SOURCE,
            "predicate_scan":
            "src/repro_torch/kernels/predicate_scan/predicate_scan.cu",
-           "masked_counts": "src/repro_torch/kernels/hist/hist.cu"}
+           "masked_counts": "src/repro_torch/kernels/hist/hist.cu",
+           "onehot_wide": WIDE_SOURCE, "onehot_wide_backward": WIDE_SOURCE}
 REPLACES = {"adv_gather_packed_rows": "src/repro/kernels/adv_gather/kernel.py:111",
             "adv_gather_packed": "src/repro/kernels/adv_gather/kernel.py:69",
             "gather_fused_parts": "src/repro/kernels/adv_gather/kernel.py:41",
             "predicate_scan": "src/repro/kernels/predicate_scan/kernel.py:37",
-            "masked_counts": "src/repro/kernels/hist/kernel.py:53"}
+            "masked_counts": "src/repro/kernels/hist/kernel.py:53",
+            "onehot_wide": "src/repro/kernels/onehot_wide/kernel.py:20",
+            # no TPU kernel: JAX differentiates the jnp version
+            "onehot_wide_backward": "src/repro/kernels/onehot_wide/ref.py:6"}
 
 
 def fail(msg: str) -> None:
@@ -158,16 +191,54 @@ def serving_features(fs_cls):
             .add("device", "onehot"))
 
 
+def bench_labels(raw: dict, rng: np.random.Generator) -> np.ndarray:
+    """``benchmarks/bench_pipeline._dataset``'s label rule over the table's
+    columns, with its noise drawn from ``rng``."""
+    return ((raw["age"] > 40).astype(float) * 0.5 +
+            (raw["income"] > 100_000).astype(float) * 0.8 +
+            (raw["state"] % 4 == 0).astype(float) * 0.3 +
+            rng.standard_normal(raw["age"].size) * 0.3 > 0.8
+            ).astype(np.float32)
+
+
+def bench_features(fs_cls):
+    """``benchmarks/bench_pipeline.py``'s FeatureSet (out_dim 4)."""
+    return (fs_cls().add("age", "zscore")
+            .add("age", "bucketize", boundaries=(30.0, 45.0, 65.0))
+            .add("income", "minmax").add("income", "log"))
+
+
 # -- phase 2 ------------------------------------------------------------------
 
 
 def check_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     torch.cuda.synchronize()
-    g, w = got.cpu().numpy(), want.cpu().numpy()
-    if g.shape != w.shape or g.dtype != w.dtype or not np.array_equal(g, w):
+    if got.dtype != want.dtype:
+        fail(f"{name}: kernel gives {got.dtype}, its plain version "
+             f"{want.dtype}")
+    # numpy has no bfloat16; widening to float32 is exact
+    g, w = (t.float().cpu().numpy() if t.dtype == torch.bfloat16
+            else t.cpu().numpy() for t in (got, want))
+    if g.shape != w.shape or not np.array_equal(g, w):
         fail(f"{name}: kernel differs from its plain version "
-             f"(shapes {g.shape} vs {w.shape}, {g.dtype} vs {w.dtype})")
+             f"(shapes {g.shape} vs {w.shape}, {got.dtype})")
     return float(np.abs(g.astype(np.float64) - w).max()) if g.size else 0.0
+
+
+def check_within(bound: torch.Tensor):
+    """A check that holds the kernel within ``bound`` of its plain version,
+    entry by entry (the gradient's float atomics sum in no fixed order)."""
+    def check(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype:
+            fail(f"{name}: kernel gives {tuple(got.shape)} {got.dtype}, "
+                 f"plain {tuple(want.shape)} {want.dtype}")
+        err = (got.double() - want.double()).abs()
+        if not bool((err <= bound.double()).all()):
+            fail(f"{name}: kernel differs from its plain version by "
+                 f"{float(err.max())}, past the summation bound")
+        return float(err.max()) if err.numel() else 0.0
+    return check
 
 
 def gather_edge_cases(ec, ops, ref, dev, rng) -> dict[str, float]:
@@ -287,11 +358,28 @@ def main_shape_kernels(ops, ref, ex_p, plan_p, plan_i, n_rows, rng,
     return out
 
 
+def syncs(fn) -> bool:
+    """Whether ``fn`` synchronises with the host (CUDA's sync debug mode
+    raises on it): such a call cannot be queued behind a spin kernel."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+        return False
+    except RuntimeError:
+        return True
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
 def measure(kernels: dict, iters: int, plain_iters: int) -> None:
-    """Check each kernel against its plain version, then time both and
-    derive the byte bound. ``ms`` times launches back to back, where
-    inputs that fit in L2 stay there between launches; ``cold_ms`` times
-    single launches after an L2 flush."""
+    """Check each kernel against its plain version, then time both, and
+    the library call where an entry names one (``library``), and derive the
+    bound. ``ms`` times launches back to back, where inputs that fit in L2
+    stay there between launches; ``cold_ms`` times single launches after an
+    L2 flush. An entry may name its own ``check`` (default bit for bit) and
+    its float32 ``ops``: the bound is the larger of bytes over the HBM rate
+    and operations over the float32 rate."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     for name, k in kernels.items():
         got, want = k["call"](), k["plain"]()
@@ -300,17 +388,29 @@ def measure(kernels: dict, iters: int, plain_iters: int) -> None:
                 fail(f"{name} at the main path's shape: count "
                      f"{int(got[1])} vs {int(want[1])}")
             got, want = got[0], want[0]
-        k["max_abs_err"] = check_equal(f"{name} at the main path's shapes",
-                                       got, want)
+        k["max_abs_err"] = k.get("check", check_equal)(
+            f"{name} at the main path's shapes", got, want)
         k["ms"] = time_ms(k["call"], iters=iters, reps=15, queue_ahead=True)
         k["cold_ms"] = time_cold_ms(k["call"], flush, launches=iters)
         k["plain_ms"] = time_ms(k["plain"], iters=plain_iters, reps=7,
                                 queue_ahead=False)
-        k["bound_ms"] = k["bytes"] / HBM_BYTES_PER_S * 1e3
+        lib = ""
+        k["library_ms"] = None
+        if "library" in k:
+            queued = not syncs(k["library"])
+            k["library_ms"] = time_ms(k["library"], iters=iters, reps=15,
+                                      queue_ahead=queued)
+            lib = (f", library {k['library_ms']:.6f} ms"
+                   f"{'' if queued else ' (synchronises: timed as called)'}")
+        byte_ms = k["bytes"] / HBM_BYTES_PER_S * 1e3
+        op_ms = k.get("ops", 0) / FP32_OPS_PER_S * 1e3
+        k["bound_ms"] = max(byte_ms, op_ms)
+        k["bound_by"] = "bytes" if byte_ms >= op_ms else "operations"
         log(f"  {name} [{k['shape']}]: kernel {k['ms']:.6f} ms back to "
             f"back, {k['cold_ms']:.6f} ms after an L2 flush, plain "
-            f"{k['plain_ms']:.6f} ms, bound {k['bound_ms']:.6f} ms "
-            f"({k['bytes']} B at 3.35 TB/s)")
+            f"{k['plain_ms']:.6f} ms{lib}, bound {k['bound_ms']:.6f} ms "
+            f"({k['bytes']} B at 3.35 TB/s, {k.get('ops', 0)} float32 ops "
+            f"at 67 TFLOP/s; {k['bound_by']})")
 
 
 def pushdown_shape_kernels(scan_ops, scan_ref, hist_ops, hist_ref, ex_p,
@@ -352,6 +452,120 @@ def pushdown_shape_kernels(scan_ops, scan_ref, hist_ops, hist_ref, ex_p,
         shape=f"{group_col} ({db}-bit, k={k}) x {n_rows} rows, "
         f"{int(mask2.sum())} selected")
     measure(out, iters=20, plain_iters=2)
+    return out
+
+
+def wide_edge_cases(ec, wide_ops, wide_ref, dev, rng) -> dict[str, float]:
+    """``ec.onehot_wide_cases``: C in {0, 1, 8}, N in {0, 1, 33, 1024},
+    K in {1, 4, 600, 65537}, F in {1, 129}, codes -1, K, 2**31 - 1 and
+    -2**31 among them. Forward bit for bit in float32 and bfloat16; the
+    gradient within the summation bound of its plain version."""
+    err = {"onehot_wide": 0.0, "onehot_wide_backward": 0.0}
+    for codes, w, g in ec.onehot_wide_cases(rng, dev):
+        k = w.shape[1]
+        name = f"(C, N, K, F) = {tuple(codes.shape) + tuple(w.shape[1:])}"
+        err["onehot_wide"] = max(err["onehot_wide"], check_equal(
+            f"onehot_wide edge set {name}", wide_ops.onehot_wide(codes, w),
+            wide_ref.onehot_wide_ref(codes, w)))
+        w16 = w.to(torch.bfloat16)
+        check_equal(f"onehot_wide bf16 edge set {name}",
+                    wide_ops.onehot_wide(codes, w16),
+                    wide_ref.onehot_wide_ref(codes, w16))
+        check = check_within(wide_ref.backward_sum_bound(codes, g, k))
+        err["onehot_wide_backward"] = max(err["onehot_wide_backward"], check(
+            f"onehot_wide_backward edge set {name}",
+            wide_ops.onehot_wide_backward(codes, g, k),
+            wide_ref.onehot_wide_backward_ref(codes, g, k)))
+    return err
+
+
+def wide_entries(wide_ops, wide_ref, codes: torch.Tensor, w: torch.Tensor,
+                 g: torch.Tensor, label: str) -> dict[str, dict]:
+    """The wide layer and its gradient on (codes, w, g), each beside the one
+    PyTorch call that computes the same function: ``embedding_bag`` (sum,
+    zero weight on out-of-range codes) over W as a (C*K, F) table, and its
+    backward. Bytes: forward, the codes, each (c, code) row of W the codes
+    need, the output; backward, the codes, g and dW (its zero fill is part
+    of the output). Operations: one float32 add per (c, n, f)."""
+    import torch.nn.functional as F
+    c, n = codes.shape
+    _, k, f = w.shape
+    valid = (codes >= 0) & (codes < k)
+    flat_rows = torch.where(valid, codes, 0).long() + \
+        k * torch.arange(c, device=codes.device)[:, None]
+    rows_needed = int(torch.unique(flat_rows[valid]).numel())
+    idx = flat_rows.t().contiguous()                      # (N, C)
+    weights = valid.t().contiguous().to(w.dtype)
+    table = w.view(c * k, f)
+    lib_w = table.detach().clone().requires_grad_(True)
+    lib_out = F.embedding_bag(idx, lib_w, mode="sum",
+                              per_sample_weights=weights)
+    want = wide_ref.onehot_wide_ref(codes, w)
+    if not torch.allclose(F.embedding_bag(idx, table, mode="sum",
+                                          per_sample_weights=weights),
+                          want, rtol=1e-5, atol=1e-5):
+        fail(f"embedding_bag does not compute onehot_wide at {label}")
+    shape = f"(C, N, K, F) = ({c}, {n}, {k}, {f}), {label}"
+    return {
+        "onehot_wide": dict(
+            call=lambda: wide_ops.onehot_wide(codes, w),
+            plain=lambda: wide_ref.onehot_wide_ref(codes, w),
+            library=lambda: F.embedding_bag(idx, table, mode="sum",
+                                            per_sample_weights=weights),
+            bytes=4 * c * n + (rows_needed + n) * f * w.element_size(),
+            ops=c * n * f, shape=shape),
+        "onehot_wide_backward": dict(
+            call=lambda: wide_ops.onehot_wide_backward(codes, g, k),
+            plain=lambda: wide_ref.onehot_wide_backward_ref(codes, g, k),
+            check=check_within(wide_ref.backward_sum_bound(codes, g, k)),
+            library=lambda: torch.autograd.grad(lib_out, lib_w, g,
+                                                retain_graph=True)[0],
+            bytes=4 * c * n + 4 * n * f + 4 * c * k * f,
+            ops=c * n * f, shape=shape),
+    }
+
+
+def train_shape_kernels(wide_ops, wide_ref, adv_ops, adv_ref, pipe,
+                        wide_codes, rng, batch: int, dev) -> dict[str, dict]:
+    """The three kernels of the Fig 2 train step at its shapes: the deep
+    features' int32 gather of ``batch`` rows, the wide layer over the
+    ``state`` and ``device`` codes of the same rows (W (2, 50, 1)), and the
+    gradient of it."""
+    idx = rng.integers(0, pipe.plan.n_rows, batch)
+    fused = pipe.plan.fused_tables()
+    codes = torch.from_numpy(pipe.plan.host_codes(idx)).to(dev)
+    wide = torch.from_numpy(np.stack([wide_codes[c][idx] for c in
+                                      ("state", "device")])).to(dev)
+    w = torch.from_numpy(rng.standard_normal((2, 50, 1),
+                                             dtype=np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((batch, 1),
+                                             dtype=np.float32)).to(dev)
+    out = {"gather_fused_parts": dict(
+        call=lambda: adv_ops.gather_fused_parts(fused, codes),
+        plain=lambda: adv_ref.gather_fused_parts_ref(fused, codes),
+        bytes=4 * codes.numel() + fused.nbytes
+        + 4 * (fused.meta.numel() + fused.col_of.numel())
+        + 4 * batch * fused.out_dim,
+        shape=f"codes {tuple(codes.shape)} int32, the train path's deep "
+        "features")}
+    out.update(wide_entries(wide_ops, wide_ref, wide, w, g,
+                            "the train path's wide codes"))
+    measure(out, iters=50, plain_iters=5)
+    return out
+
+
+def sweep_shape_kernels(wide_ops, wide_ref, rng, dev) -> dict[str, dict]:
+    """The wide layer and its gradient at the JAX sweep's largest shape,
+    (C, N, K, F) = (2, 256, 600, 128), random in-range codes."""
+    codes = torch.from_numpy(rng.integers(0, 600, (2, 256))
+                             .astype(np.int32)).to(dev)
+    w = torch.from_numpy(rng.standard_normal((2, 600, 128),
+                                             dtype=np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((256, 128),
+                                             dtype=np.float32)).to(dev)
+    out = wide_entries(wide_ops, wide_ref, codes, w, g, "the JAX sweep's "
+                       "largest shape")
+    measure(out, iters=50, plain_iters=5)
     return out
 
 
@@ -518,6 +732,215 @@ def pushdown_path(Q, FeatureService, ex, plan, table, p1, p2, group_col,
         f"{checked} served rows bit-exact")
 
 
+# -- phase 5 ------------------------------------------------------------------
+
+
+def traditional_features(table, idx: np.ndarray):
+    """``bench_pipeline.py``'s traditional path for one batch (paper Fig 1):
+    decode the columns to row values, write the rows as CSV text, parse it
+    back, recompute the transforms over the decoded columns, and return the
+    (deep, wide, embed) host arrays to ship."""
+    rows = {c: table[c].decode()[idx] for c in
+            ("age", "income", "state", "device")}
+    buf = io.StringIO()
+    for j in range(idx.size):                       # CSV materialization
+        buf.write(f"{rows['age'][j]},{rows['income'][j]},"
+                  f"{rows['state'][j]},{rows['device'][j]}\n")
+    buf.seek(0)
+    parsed = np.loadtxt(buf, delimiter=",", dtype=np.float64)
+    age, income = parsed[:, 0], parsed[:, 1]
+    a_all = table["age"].decode().astype(np.float64)
+    i_all = table["income"].decode().astype(np.float64)
+    deep = np.stack([
+        (age - a_all.mean()) / a_all.std(),
+        np.searchsorted([30., 45., 65.], age, side="right"),
+        (income - i_all.min()) / (i_all.max() - i_all.min()),
+        np.log1p(income),
+    ], axis=1).astype(np.float32)
+    wide = np.stack([parsed[:, 2], parsed[:, 3]]).astype(np.int32)
+    return deep, wide, parsed[:, 2].astype(np.int32)
+
+
+def train_path(wd, to_device, adv_ops, wide_ops, pipe, table, wide_codes, y,
+               seed, dev, train_kernels, batch=1024, steps=500, drift_steps=200,
+               loop_steps=8) -> None:
+    """Paper Fig 1/2 on the 2**25-row table: ``bench_pipeline.py``'s ADV and
+    traditional loops (``loop_steps`` each, walls and host->device bytes),
+    then ``steps`` ADV steps (steps/s, rows/s, the kernels' share of the
+    wall), and :func:`drift_check` over the first ``drift_steps`` steps."""
+    cfg = wd.WideDeepConfig(wide_cards=(50, 4), deep_dim=pipe.out_dim,
+                            embed_cols=((50, 8),), hidden=(32, 16))
+    params0 = wd.init_widedeep(cfg, torch.Generator().manual_seed(seed), dev)
+    step = wd.make_widedeep_train_step(cfg, lr=0.1)
+    n_rows = pipe.plan.n_rows
+    rng = np.random.default_rng(seed)
+
+    def adv_batch(idx):
+        wide = np.stack([wide_codes["state"][idx], wide_codes["device"][idx]])
+        emb, labels = wide_codes["state"][idx], y[idx]
+        sent = pipe.bytes_moved_adv(idx.size) + wide.nbytes + emb.nbytes \
+            + labels.nbytes
+        return (to_device(wide, dev), pipe.batch(idx), to_device(labels, dev),
+                [to_device(emb, dev)]), sent
+
+    # one step first, discarded: the first cuBLAS and allocator calls are
+    # set-up, not a loop's time
+    step(params0, *adv_batch(rng.integers(0, n_rows, batch))[0])
+    # the bench's two loops, from the same parameters
+    walls, sent, losses = {}, {}, {}
+    for path in ("adv", "traditional"):
+        p, nbytes = params0, 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(loop_steps):
+            idx = rng.integers(0, n_rows, batch)
+            if path == "adv":
+                args, b = adv_batch(idx)
+            else:
+                deep, wide, emb = traditional_features(table, idx)
+                labels = y[idx]
+                b = deep.nbytes + wide.nbytes + emb.nbytes + labels.nbytes
+                args = (to_device(wide, dev), to_device(deep, dev),
+                        to_device(labels, dev), [to_device(emb, dev)])
+            p, loss = step(p, *args)
+            nbytes += b
+        losses[path] = float(loss)
+        walls[path] = time.perf_counter() - t0
+        sent[path] = nbytes
+    log(f"Fig 2 ADV loop: {loop_steps} steps x {batch} rows in "
+        f"{walls['adv']:.6f} s, {sent['adv']} B host->device, last loss "
+        f"{losses['adv']:.6f}")
+    log(f"Fig 1 traditional loop (decode, CSV, parse, ship f32): "
+        f"{loop_steps} steps in {walls['traditional']:.6f} s, "
+        f"{sent['traditional']} B host->device, last loss "
+        f"{losses['traditional']:.6f}")
+    log(f"  traditional / ADV: wall {walls['traditional'] / walls['adv']:.6f}"
+        f"x, bytes {sent['traditional'] / sent['adv']:.6f}x")
+
+    # the long run, keeping the first drift_steps batches and the card's
+    # parameters before each of them (and after the last) for the CPU
+    kept, trajectory, card_losses = [], [params0], []
+    before = {**adv_ops.LAUNCHES, **wide_ops.LAUNCHES}
+    p = params0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        idx = rng.integers(0, n_rows, batch)
+        args, _ = adv_batch(idx)
+        p, loss = step(p, *args)
+        card_losses.append(loss)
+        if i < drift_steps:
+            kept.append(idx)
+            trajectory.append(p)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    card_losses = torch.stack(card_losses).tolist()
+    after = {**adv_ops.LAUNCHES, **wide_ops.LAUNCHES}
+    share = sum((after[name] - before[name]) * train_kernels[name]["ms"]
+                for name in ("gather_fused_parts", "onehot_wide",
+                             "onehot_wide_backward")) / (wall * 1e3)
+    if not all(np.isfinite(card_losses)):
+        fail("the train path's loss is not finite")
+    log(f"Fig 2 ADV training: {steps} steps x {batch} rows in {wall:.6f} s "
+        f"= {steps / wall:.6f} steps/s, {steps * batch / wall:.1f} rows/s; "
+        f"loss {card_losses[0]:.6f} -> {np.mean(card_losses[-20:]):.6f} "
+        f"(mean of the last 20), largest change from one step to the next "
+        f"{np.abs(np.diff(card_losses)).max():.6f}; {share:.6f} of the wall "
+        f"in the three kernels (launches x their ms at these shapes)")
+    drift_check(wd, adv_ops, pipe, wide_codes, y, step, kept, trajectory,
+                card_losses)
+
+
+def drift_check(wd, adv_ops, pipe, wide_codes, y, step, kept, trajectory,
+                card_losses) -> None:
+    """The card's first steps again on the CPU through the plain versions.
+
+    Gated, step by step: from the card's parameters before step i, the
+    CPU's step on the same batch gives a loss within 1e-5 x max(1, |loss|)
+    of the card's and parameters within allclose(rtol=1e-4, atol=1e-6) of
+    the card's after step i, for every step up to and including the last.
+    Printed, not gated: the CPU run free from the same initial parameters
+    (no re-synchronisation), beside the CPU's own run from initial
+    parameters scaled by (1 + 2**-23), about one rounding: SGD through
+    ReLUs splits trajectories wherever a pre-activation changes sign, so
+    any two float32 orders part by far more than 1e-5 within some hundred
+    steps of this training."""
+    fused_cpu = adv_ops.fuse_tables([c.fused_host for c in pipe.plan.plans],
+                                    "cpu")
+
+    from torch.utils import _pytree as pytree
+
+    def cpu(p, scale=1.0):
+        return wd.params_from_reference(pytree.tree_map(
+            lambda a: a * np.float32(scale), wd.params_to_numpy(p)), "cpu")
+
+    free, nudged = cpu(trajectory[0]), cpu(trajectory[0], 1 + 2 ** -23)
+    worst = param_worst = 0.0
+    free_worst = (0.0, 0)
+    nudged_worst = (0.0, 0)
+    t0 = time.perf_counter()
+    for i, idx in enumerate(kept):
+        args = (torch.from_numpy(np.stack([wide_codes["state"][idx],
+                                           wide_codes["device"][idx]])),
+                adv_ops.gather_fused_parts(
+                    fused_cpu, torch.from_numpy(pipe.plan.host_codes(idx))),
+                torch.from_numpy(y[idx]),
+                [torch.from_numpy(wide_codes["state"][idx])])
+        p_next, loss = step(cpu(trajectory[i]), *args)
+        d = abs(card_losses[i] - float(loss))
+        worst = max(worst, d)
+        if d > 1e-5 * max(1.0, abs(float(loss))):
+            fail(f"train parity: step {i} from the card's parameters: loss "
+                 f"{card_losses[i]!r} on the card vs {float(loss)!r} on the "
+                 "CPU")
+        got, _ = pytree.tree_flatten_with_path(
+            wd.params_to_numpy(trajectory[i + 1]))
+        for (path, a), b in zip(got, pytree.tree_leaves(
+                wd.params_to_numpy(p_next))):
+            param_worst = max(param_worst, float(np.abs(a - b).max()))
+            if not np.allclose(a, b, rtol=1e-4, atol=1e-6):
+                fail(f"train parity: parameter {pytree.keystr(path)} after "
+                     f"step {i} differs from the CPU's step by "
+                     f"{np.abs(a - b).max()!r}")
+        free, lf = step(free, *args)
+        nudged, ln = step(nudged, *args)
+        free_worst = max(free_worst, (abs(card_losses[i] - float(lf)), i))
+        nudged_worst = max(nudged_worst, (abs(float(lf) - float(ln)), i))
+    log(f"train parity vs the CPU's plain versions, {len(kept)} steps each "
+        f"from the card's parameters ({time.perf_counter() - t0:.3f} s on "
+        f"the CPU with the free runs): largest |loss difference| {worst!r} "
+        f"(limit 1e-5 x max(1, |loss|)); largest parameter difference "
+        f"{param_worst!r} (allclose rtol 1e-4, atol 1e-6)")
+    log(f"  free runs from the same initial parameters, not gated: card vs "
+        f"CPU largest |loss difference| {free_worst[0]!r} at step "
+        f"{free_worst[1]}; CPU vs CPU from parameters x (1 + 2**-23) "
+        f"{nudged_worst[0]!r} at step {nudged_worst[1]}")
+
+
+# -- phase 6 ------------------------------------------------------------------
+
+
+def cycle_phase(analytics_cycle, dev) -> None:
+    """``examples/analytics_cycle.py`` through the port on the card, at
+    the example's sizes and seeds; its two asserts must hold."""
+    t0 = time.perf_counter()
+    r = analytics_cycle(dev)
+    wall = time.perf_counter() - t0
+    log(f"analytics cycle (N = 30,000, K = 200, 4 latent groups, batch 512, "
+        f"800 + 400 steps) in {wall:.3f} s")
+    log(f"  round 1 (hash8 + per-code embedding): loss {r['l1'][0]:.6f} -> "
+        f"{r['r1']:.6f}; wrote back {r['advs']}")
+    log(f"  learned-bucket purity vs the decision grouping: "
+        f"{r['purity']:.6f}")
+    log(f"  round 2 (learned bucketization only): loss {r['l2'][0]:.6f} -> "
+        f"{r['r2']:.6f}; round 2 / round 1 = {r['r2'] / r['r1']:.6f}")
+    if not r["r2"] < 1.2 * r["r1"]:
+        fail(f"analytics cycle: round 2 {r['r2']} not below 1.2 x round 1 "
+             f"{r['r1']}")
+    if not r["purity"] > 0.75:
+        fail(f"analytics cycle: purity {r['purity']} not above 0.75")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -531,16 +954,23 @@ def main() -> None:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.columnar import Table
     from repro_torch.columnar import query as Q
-    from repro_torch.core import FeatureExecutor, FeaturePlan, FeatureSet
+    from repro_torch.core import (FeatureExecutor, FeaturePipeline,
+                                  FeaturePlan, FeatureSet)
+    from repro_torch.core.cycle import analytics_cycle
+    from repro_torch.core.pipeline import to_device
     from repro_torch.kernels import build
     from repro_torch.kernels import edge_cases as ec
     from repro_torch.kernels.adv_gather import ops, ref
     from repro_torch.kernels.hist import ops as hist_ops, ref as hist_ref
     from repro_torch.kernels.predicate_scan import ops as scan_ops
+    from repro_torch.kernels.onehot_wide import ops as wide_ops
+    from repro_torch.kernels.onehot_wide import ref as wide_ref
     from repro_torch.kernels.predicate_scan import ref as scan_ref
+    from repro_torch.models import widedeep as wd
     from repro_torch.serve import FeatureService
 
     # -- 1. setup ---------------------------------------------------------------
+    phase_t0 = time.perf_counter()
     smi = smi_line()
     log(f"card: {smi} | {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
@@ -557,7 +987,8 @@ def main() -> None:
     n_rows = 1 << args.rows_log2
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
-    table = Table.from_data(serving_data(rng, n_rows))
+    raw = serving_data(rng, n_rows)
+    table = Table.from_data(raw)
     t1 = time.perf_counter()
     plan_p = FeaturePlan(table, serving_features(FeatureSet), packed=True,
                          device=dev)
@@ -571,6 +1002,19 @@ def main() -> None:
         f"{ex_p.resident_bytes()} B of packed words resident")
     if plan_p.out_dim != 58 or plan_p.device_bits != [8, 8, 8, 2]:
         fail("serving table does not have the benchmark's widths")
+    # the train path (paper Fig 2): bench_pipeline.py's labels and features
+    # over the same table, its wide and embedded codes from the host codes
+    t0 = time.perf_counter()
+    y = bench_labels(raw, np.random.default_rng(args.seed + 5))
+    del raw
+    pipe = FeaturePipeline(table, bench_features(FeatureSet), device=dev)
+    wide_codes = {c: table[c].codes() for c in ("state", "device")}
+    torch.cuda.synchronize()
+    log(f"train pipeline: int32 plan over columns {pipe.plan.columns}, "
+        f"out_dim {pipe.out_dim}, {float(y.mean()):.6f} positive labels; "
+        f"built in {time.perf_counter() - t0:.3f} s")
+    if pipe.out_dim != 4:
+        fail("train pipeline does not have the benchmark's out_dim of 4")
 
     # the pushdown path's predicates, over the load-order dictionaries
     p1 = Q.eq("state", 7) & Q.between("age", 30, 45)
@@ -578,14 +1022,20 @@ def main() -> None:
     log("pushdown predicates:")
     compiled_kinds(ex_p, {"P1": p1, "P2": p2})
 
+    log(f"phase 1 (setup) wall: {time.perf_counter() - phase_t0:.3f} s")
+
     # -- 2. kernels vs plain ----------------------------------------------------
-    log("kernels vs plain versions (bit for bit):")
+    phase_t0 = time.perf_counter()
+    log("kernels vs plain versions (bit for bit; the wide gradient within "
+        "the float32 bound of two summation orders):")
     errs = gather_edge_cases(ec, ops, ref, dev,
                              np.random.default_rng(args.seed + 1))
     errs.update(pushdown_edge_cases(ec, scan_ops, scan_ref, hist_ops,
                                     hist_ref, dev,
                                     np.random.default_rng(args.seed + 4)))
-    log(f"  edge cases equal: {sorted(errs)}")
+    errs.update(wide_edge_cases(ec, wide_ops, wide_ref, dev,
+                                np.random.default_rng(args.seed + 6)))
+    log(f"  edge cases hold: {sorted(errs)}")
     coalesce, bucket, range_batch = 4, 512, 4096
     kernels = main_shape_kernels(ops, ref, ex_p, plan_p, plan_i, n_rows,
                                  np.random.default_rng(args.seed + 2),
@@ -593,8 +1043,18 @@ def main() -> None:
     kernels.update(pushdown_shape_kernels(scan_ops, scan_ref, hist_ops,
                                           hist_ref, ex_p, plan_p, n_rows, p1,
                                           p2, "device"))
+    train_kernels = train_shape_kernels(
+        wide_ops, wide_ref, ops, ref, pipe, wide_codes,
+        np.random.default_rng(args.seed + 7), 1024, dev)
+    kernels.update({k: train_kernels[k]
+                    for k in ("onehot_wide", "onehot_wide_backward")})
+    sweep_shape_kernels(wide_ops, wide_ref,
+                        np.random.default_rng(args.seed + 8), dev)
+    log(f"phase 2 (kernels vs plain) wall: "
+        f"{time.perf_counter() - phase_t0:.3f} s")
 
     # -- 3. serving path ---------------------------------------------------------
+    phase_t0 = time.perf_counter()
     req_rng = np.random.default_rng(args.seed + 3)
     sizes = (128, 256, 512)
     packed_reqs = [req_rng.integers(0, n_rows, int(req_rng.choice(sizes)))
@@ -604,7 +1064,7 @@ def main() -> None:
     pushdown_reqs = [req_rng.integers(0, n_rows, int(req_rng.choice(sizes)))
                      for _ in range(256)]
     torch.cuda.reset_peak_memory_stats()
-    for counter in (ops, scan_ops, hist_ops):
+    for counter in (ops, scan_ops, hist_ops, wide_ops):
         counter.reset_launches()
 
     with FeatureService(plan_p, prefetch=2, buckets=(bucket,),
@@ -656,10 +1116,12 @@ def main() -> None:
     idle = [k for k, v in launches.items() if v <= 0]
     if idle:
         fail(f"kernels never launched on the serving path: {idle}")
+    log(f"phase 3 (serving) wall: {time.perf_counter() - phase_t0:.3f} s")
 
     # -- 4. pushdown path ----------------------------------------------------------
+    phase_t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    for counter in (ops, scan_ops, hist_ops):
+    for counter in (ops, scan_ops, hist_ops, wide_ops):
         counter.reset_launches()
     pushdown_path(Q, FeatureService, ex_p, plan_p, table, p1, p2, "device",
                   "income", dict(prefetch=2, buckets=(bucket,),
@@ -672,15 +1134,51 @@ def main() -> None:
     if idle:
         fail(f"kernels never launched on the pushdown path: {idle}")
     launches.update(pushed)
+    log(f"phase 4 (pushdown) wall: {time.perf_counter() - phase_t0:.3f} s")
 
-    # -- 5. report ------------------------------------------------------------------
+    # -- 5. train path (paper Fig 1/2) ----------------------------------------------
+    phase_t0 = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 matmuls are on: the train path's parity needs full float32")
+    torch.cuda.reset_peak_memory_stats()
+    for counter in (ops, scan_ops, hist_ops, wide_ops):
+        counter.reset_launches()
+    train_path(wd, to_device, ops, wide_ops, pipe, table, wide_codes, y,
+               args.seed, dev, train_kernels)
+    trained = {"gather_fused_parts": ops.LAUNCHES["gather_fused_parts"],
+               **wide_ops.LAUNCHES}
+    log(f"kernels launched on the train path: "
+        f"{dict(**ops.LAUNCHES, **wide_ops.LAUNCHES)}")
+    log(f"max_memory_allocated: {torch.cuda.max_memory_allocated()} B")
+    idle = [k for k, v in trained.items() if v <= 0]
+    if idle:
+        fail(f"kernels never launched on the train path: {idle}")
+    launches.update(wide_ops.LAUNCHES)
+    log(f"phase 5 (train path) wall: {time.perf_counter() - phase_t0:.3f} s")
+
+    # -- 6. analytics cycle (paper §7) ----------------------------------------------
+    phase_t0 = time.perf_counter()
+    for counter in (ops, scan_ops, hist_ops, wide_ops):
+        counter.reset_launches()
+    cycle_phase(analytics_cycle, dev)
+    cycled = {**ops.LAUNCHES, **scan_ops.LAUNCHES, **hist_ops.LAUNCHES,
+              **wide_ops.LAUNCHES}
+    log(f"kernels launched on the analytics cycle: {cycled} (its models "
+        "have no wide columns, C = 0: the wide term is zero without a "
+        "launch, and its deep features are host ADV lookups)")
+    if any(cycled.values()):
+        fail("the analytics cycle launched a kernel it has no use for")
+    log(f"phase 6 (analytics cycle) wall: "
+        f"{time.perf_counter() - phase_t0:.3f} s")
+
+    # -- 7. report ------------------------------------------------------------------
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": max(k["max_abs_err"], errs[name]), "ms": k["ms"],
          "cold_ms": k["cold_ms"],
          "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-         "bound_by": "bytes", "library_ms": None}
+         "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
         for name, k in kernels.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,8 @@
 - ``predicate_scan`` — compiled predicate terms over the resident packed
   words -> selection mask and match count in one launch; bitmap compaction
 - ``hist``           — masked per-code counts straight from the packed words
+- ``onehot_wide``    — the wide half of Wide&Deep (a direct gather-sum over
+  C categorical columns) and its scatter-add gradient
 - ``packed_code.cuh`` — the packed word layout every kernel reads it by
 - ``bitunpack``      — the device word widths (host helper only)
 - ``launch``         — what every wrapper shares (checks, stream, errors)

@@ -26,6 +26,7 @@ SOURCES = {
     "adv_gather": _HERE / "adv_gather" / "adv_gather.cu",
     "predicate_scan": _HERE / "predicate_scan" / "predicate_scan.cu",
     "hist": _HERE / "hist" / "hist.cu",
+    "onehot_wide": _HERE / "onehot_wide" / "onehot_wide.cu",
 }
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

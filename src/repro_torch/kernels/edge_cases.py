@@ -1,6 +1,6 @@
 """Edge-case inputs that hold the CUDA kernels against their plain versions
 on a card: a random packed stream at every device width, the scan's term
-sets and the masked counts' cases.
+sets, the masked counts' cases and the one-hot wide layer's grid.
 
 ``chip_smoke.py`` and ``tests/test_torch_kernels_cuda.py`` both draw their
 edge sets from here, so the two stay one set. Nothing here launches a
@@ -66,3 +66,35 @@ def masked_counts_cases(rng: np.random.Generator, cap: int, device):
              torch.ones(cap, dtype=torch.bool, device=device),
              torch.from_numpy(rng.random(cap) < 0.4).to(device)]
     return cases, masks
+
+
+# the one-hot wide layer's grid: every (C, K, F) with every N
+ONEHOT_CS = (0, 1, 8)
+ONEHOT_NS = (0, 1, 33, 1024)
+ONEHOT_KS = (1, 4, 600, 65_537)
+ONEHOT_FS = (1, 129)
+
+
+def onehot_wide_cases(rng: np.random.Generator, device, cs=ONEHOT_CS,
+                      ns=ONEHOT_NS, ks=ONEHOT_KS, fs=ONEHOT_FS):
+    """Yield ``(codes, w, g)`` for the one-hot wide layer over every
+    (C, K, F) and N of the grid: codes mostly in [0, K), with -1, K,
+    2**31 - 1 and -2**31 among them (out of range: they add nothing and get
+    no gradient); w (C, K, F) float32, finite; g (N, F) float32, the output
+    gradient. One w per (C, K, F), shared by its Ns."""
+    special = np.array([-1, 0, (1 << 31) - 1, -(1 << 31)], np.int64)
+    for c in cs:
+        for k in ks:
+            for f in fs:
+                w = torch.from_numpy(rng.standard_normal(
+                    (c, k, f), dtype=np.float32)).to(device)
+                for n in ns:
+                    codes = rng.integers(0, k, (c, n))
+                    special[1] = k
+                    for ci in range(c):
+                        at = rng.permutation(n)[:special.size]
+                        codes[ci, at] = special[:at.size]
+                    codes = torch.from_numpy(codes.astype(np.int32)).to(device)
+                    g = torch.from_numpy(rng.standard_normal(
+                        (n, f), dtype=np.float32)).to(device)
+                    yield codes, w, g

@@ -56,6 +56,21 @@ def test_default_device_raises_without_cuda(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def test_train_entry_points_default_to_cuda(monkeypatch):
+    """Wide&Deep's entry points make tensors on ``cuda`` unless the caller
+    names another device, and raise without CUDA."""
+    from repro_torch.core.cycle import analytics_cycle
+    from repro_torch.models import widedeep as wd
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = wd.WideDeepConfig(wide_cards=(3,), deep_dim=2, hidden=(4,))
+    params = wd.init_widedeep(cfg, torch.Generator(), device="cpu")
+    for make in (lambda: wd.init_widedeep(cfg, torch.Generator()),
+                 lambda: wd.params_from_reference(wd.params_to_numpy(params)),
+                 lambda: analytics_cycle(steps=(1, 1))):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+
+
 @pytest.mark.cuda
 def test_default_device_is_cuda():
     if not torch.cuda.is_available():

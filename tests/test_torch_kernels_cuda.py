@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on a card: the
-three ADV gathers, the predicate scan and the masked counts.
+three ADV gathers, the predicate scan, the masked counts, and the one-hot
+wide layer with its gradient.
 
 Needs a CUDA device and ``nvcc`` (the kernels build at first use); every
 test skips without a card. Imports neither JAX nor the reference package,
@@ -15,6 +16,8 @@ from repro_torch.kernels import edge_cases
 from repro_torch.kernels.adv_gather import ops, ref
 from repro_torch.kernels.hist import ops as hist_ops
 from repro_torch.kernels.hist import ref as hist_ref
+from repro_torch.kernels.onehot_wide import ops as wide_ops
+from repro_torch.kernels.onehot_wide import ref as wide_ref
 from repro_torch.kernels.predicate_scan import ops as scan_ops
 from repro_torch.kernels.predicate_scan import ref as scan_ref
 
@@ -116,3 +119,56 @@ def test_masked_counts_kernel_matches_plain_version_on_card(cuda):
                 torch.cuda.synchronize()
                 assert got.is_cuda and torch.equal(got, want)
                 assert hist_ops.LAUNCHES["masked_counts"] == before + 1
+
+
+@pytest.mark.cuda
+def test_onehot_wide_kernels_match_plain_versions_on_card(cuda):
+    """``edge_cases.onehot_wide_cases``: C in {0, 1, 8}, N in {0, 1, 33,
+    1024}, K in {1, 4, 600, 65537}, F in {1, 129}, codes -1, K, 2**31 - 1
+    and -2**31 among them. The forward equals its plain version bit for
+    bit in float32 and bfloat16; the gradient (float atomics) lies within
+    the float32 bound of two summation orders. Each launch is counted once;
+    an empty C or N launches nothing."""
+    for codes, w, g in edge_cases.onehot_wide_cases(
+            np.random.default_rng(6), cuda):
+        k = w.shape[1]
+        before = dict(wide_ops.LAUNCHES)
+        w16 = w.to(torch.bfloat16)
+        got = wide_ops.onehot_wide(codes, w)
+        got16 = wide_ops.onehot_wide(codes, w16)
+        dw = wide_ops.onehot_wide_backward(codes, g, k)
+        want = wide_ref.onehot_wide_ref(codes, w)
+        want16 = wide_ref.onehot_wide_ref(codes, w16)
+        dw_want = wide_ref.onehot_wide_backward_ref(codes, g, k)
+        bound = wide_ref.backward_sum_bound(codes, g, k)
+        torch.cuda.synchronize()
+        assert got.is_cuda and torch.equal(got, want)
+        assert got16.dtype == torch.bfloat16 and torch.equal(got16, want16)
+        assert dw.shape == w.shape and ((dw - dw_want).abs() <= bound).all()
+        launched = int(codes.numel() > 0)
+        assert wide_ops.LAUNCHES == {
+            "onehot_wide": before["onehot_wide"] + 2 * launched,
+            "onehot_wide_backward": before["onehot_wide_backward"]
+            + launched}
+
+
+@pytest.mark.cuda
+def test_onehot_wide_autograd_launches_both_kernels_on_card(cuda):
+    """On CUDA tensors the autograd Function launches the forward kernel
+    and, on backward, the gradient kernel; a bfloat16 gradient raises."""
+    rng = np.random.default_rng(7)
+    codes = torch.from_numpy(rng.integers(-1, 51, (2, 1024))
+                             .astype(np.int32)).to(cuda)
+    w = torch.from_numpy(rng.standard_normal((2, 50, 1), dtype=np.float32)) \
+        .to(cuda).requires_grad_(True)
+    g = torch.from_numpy(rng.standard_normal((1024, 1), dtype=np.float32)) \
+        .to(cuda)
+    before = dict(wide_ops.LAUNCHES)
+    (wide_ops.onehot_wide(codes, w) * g).sum().backward()
+    torch.cuda.synchronize()
+    assert wide_ops.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    want = wide_ref.onehot_wide_backward_ref(codes, g, 50)
+    assert (w.grad - want).abs().le(
+        wide_ref.backward_sum_bound(codes, g, 50)).all()
+    with pytest.raises(TypeError):
+        wide_ops.onehot_wide_backward(codes, g.to(torch.bfloat16), 50)
