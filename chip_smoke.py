@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
-    python3 chip_smoke.py [--seed S] [--rows-log2 25]
+    python3 chip_smoke.py [--seed S] [--rows-log2 25] [--train-steps 500]
+                          [--parity-steps 200]
 
 Run from the root of a checkout; it builds the CUDA kernels from the
 checkout's sources (into build/torch_ext/) and needs one card. Phases:
@@ -12,21 +13,26 @@ checkout's sources (into build/torch_ext/) and needs one card. Phases:
    58; device widths 8/8/8/2) at 2**25 rows, a user table a feature store
    serves, made from ``--seed``; then the train path's int32 plan over the
    same table with ``benchmarks/bench_pipeline.py``'s FeatureSet (out_dim
-   4) and its label rule (noise from ``--seed``).
-2. kernels vs plain — each of the seven CUDA kernels (three ADV gathers,
-   the predicate scan, the masked counts, the one-hot wide layer and its
-   gradient) against its plain PyTorch version on the card, at the shapes
-   the main paths give it and on an edge-case set (widths 1-32, codes past
-   every table, rows past the stream, n off every multiple of 32, empty and
-   full selections, LUT clamps, k = 1, codes >= k, k past the shared-memory
-   counters; for the wide layer C in {0, 1, 8}, N in {0, 1, 33, 1024}, K
-   in {1, 4, 600, 65537}, F in {1, 129}, codes -1, K, 2**31 - 1, -2**31,
-   bf16). Bit for bit, except the wide gradient (float atomics), which is
-   held to the float32 bound of two summation orders. Median times of
-   both, the kernels' both back to back and after an L2 flush, and for the
-   wide layer the one PyTorch call that computes the same function
-   (``embedding_bag`` and its backward), also at the JAX sweep's largest
-   shape (2, 256, 600, 128).
+   4) and its label rule (noise from ``--seed``); and the Table 6 column
+   of ``benchmarks/bench_featurize.py`` (``rng.integers(0, 999, N)``, K =
+   999, 10 bits stored at device width 16) at the same 2**25 rows.
+2. kernels vs plain — each of the ten CUDA kernels (four ADV gathers, the
+   predicate scan, the masked counts, the one-hot wide layer and its
+   gradient, the bit-unpack and the counts) against its plain PyTorch
+   version on the card, at the shapes the main paths give it and on an
+   edge-case set (widths 1-32, codes past every table, rows past the
+   stream, n off every multiple of 32, empty and full selections, LUT
+   clamps, k = 1, codes >= k, k past the shared-memory counters; for the
+   wide layer C in {0, 1, 8}, N in {0, 1, 33, 1024}, K in {1, 4, 600,
+   65537}, F in {1, 129}, codes -1, K, 2**31 - 1, -2**31, bf16; for the
+   Table 6 kernels ``edge_cases``' bit-unpack, counts and single-table
+   gather sets). Bit for bit, except the wide gradient (float atomics),
+   which is held to the float32 bound of two summation orders. Median
+   times of both, the kernels' both back to back and after an L2 flush,
+   and where one PyTorch call computes the same function, that call's
+   (``embedding_bag`` and its backward for the wide layer, also at the JAX
+   sweep's largest shape (2, 256, 600, 128); ``bincount`` for the counts;
+   ``index_select`` for the single-table gather).
 3. serving path — with every launch count set to 0 first: a FeatureService
    over the packed plan serves 4,096 requests of 128/256/512 uniform random
    rows; FeatureExecutor.batches(4096) serves 64 block-shuffled range
@@ -51,15 +57,29 @@ checkout's sources (into build/torch_ext/) and needs one card. Phases:
    of them again on the CPU through the plain versions, each from the
    card's parameters before it and on its batch: losses within
    1e-5 x max(1, |loss|) and parameters after it within allclose(rtol=1e-4,
-   atol=1e-6), every step. A CPU run free from the same initial parameters
-   is printed beside it, not gated, with the CPU's own split from a
-   one-rounding nudge (ReLU kinks part float32 trajectories). The int32
-   gather, the wide layer and its gradient must have launched.
+   atol=1e-6), every step; a step that fails on its whole batch is stepped
+   again on both devices without the rows where the card's and the CPU's
+   ReLU branches differ, and must then hold at the same tolerances (a
+   pre-activation within rounding of zero makes the gradient jump by the
+   whole back-propagated term). A CPU run free from the same initial
+   parameters is printed beside it, not gated, with the CPU's own split
+   from a one-rounding nudge (ReLU kinks part float32 trajectories). The
+   int32 gather, the wide layer and its gradient must have launched.
 6. analytics cycle (paper §7) — ``examples/analytics_cycle.py`` through
    the port on the card at its own sizes and seeds; its two checks (round 2
    within 1.2x of round 1, purity > 0.75) must hold. Its models have no
    wide columns, so no kernel launches, which is checked.
-7. report — one JSON line per the kernel table, the nvidia-smi line, and
+7. Table 6 on the card (paper Table 6, §6.1-6.3) — launch counts set to 0
+   again; ``bench_featurize.py``'s device featurization path at the
+   column's full 2**25 rows: the ten-transform catalog built on the host;
+   the column's device words shipped and bit-unpacked on the card (equal
+   to the host codes); their counts (equal to ``Dictionary.counts``, and
+   ``columnar.stats``' dictionary statistics equal to its scans); the
+   ``zscore`` ADV gathered over the whole column; each of the ten ADVs
+   gathered over a 65,536-row batch (the bench's full-mode N). Every
+   gathered row must equal ``AugmentedDictionary.featurize`` bit for bit,
+   and the three kernels must have launched.
+8. report — one JSON line per the kernel table, the nvidia-smi line, and
    last ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits nonzero before the last line. Without CUDA, or
@@ -88,13 +108,16 @@ COLD_SPIN_CYCLES = 2_000_000       # ~1 ms: covers one launch and a flush
 L2_FLUSH_BYTES = 128 << 20         # written before each cold launch
 ADV_SOURCE = "src/repro_torch/kernels/adv_gather/adv_gather.cu"
 WIDE_SOURCE = "src/repro_torch/kernels/onehot_wide/onehot_wide.cu"
+HIST_SOURCE = "src/repro_torch/kernels/hist/hist.cu"
 SOURCES = {"adv_gather_packed_rows": ADV_SOURCE,
            "adv_gather_packed": ADV_SOURCE,
            "gather_fused_parts": ADV_SOURCE,
            "predicate_scan":
            "src/repro_torch/kernels/predicate_scan/predicate_scan.cu",
-           "masked_counts": "src/repro_torch/kernels/hist/hist.cu",
-           "onehot_wide": WIDE_SOURCE, "onehot_wide_backward": WIDE_SOURCE}
+           "masked_counts": HIST_SOURCE,
+           "onehot_wide": WIDE_SOURCE, "onehot_wide_backward": WIDE_SOURCE,
+           "bitunpack": "src/repro_torch/kernels/bitunpack/bitunpack.cu",
+           "hist": HIST_SOURCE, "adv_gather": ADV_SOURCE}
 REPLACES = {"adv_gather_packed_rows": "src/repro/kernels/adv_gather/kernel.py:111",
             "adv_gather_packed": "src/repro/kernels/adv_gather/kernel.py:69",
             "gather_fused_parts": "src/repro/kernels/adv_gather/kernel.py:41",
@@ -102,7 +125,12 @@ REPLACES = {"adv_gather_packed_rows": "src/repro/kernels/adv_gather/kernel.py:11
             "masked_counts": "src/repro/kernels/hist/kernel.py:53",
             "onehot_wide": "src/repro/kernels/onehot_wide/kernel.py:20",
             # no TPU kernel: JAX differentiates the jnp version
-            "onehot_wide_backward": "src/repro/kernels/onehot_wide/ref.py:6"}
+            "onehot_wide_backward": "src/repro/kernels/onehot_wide/ref.py:6",
+            "bitunpack": "src/repro/kernels/bitunpack/kernel.py:33",
+            "hist": "src/repro/kernels/hist/kernel.py:19",
+            "adv_gather": "src/repro/kernels/adv_gather/kernel.py:23"}
+# paper Table 6's column (benchmarks/bench_featurize.py:29, 844-846)
+TABLE6_K = 999
 
 
 def fail(msg: str) -> None:
@@ -206,6 +234,27 @@ def bench_features(fs_cls):
     return (fs_cls().add("age", "zscore")
             .add("age", "bucketize", boundaries=(30.0, 45.0, 65.0))
             .add("income", "minmax").add("income", "log"))
+
+
+def table6_column(Dictionary, Column, rng: np.random.Generator, n: int):
+    """``bench_featurize.run``'s column: ``rng.integers(0, 999, n)``,
+    dictionary-encoded in load order; returns (dictionary, codes, Column),
+    the Column's IMCUs packed at 10 bits and its device words at 16."""
+    d, codes = Dictionary.from_data(rng.integers(0, TABLE6_K, n))
+    col = Column(d, codes)
+    col.device_words()                   # repacked once, cached per IMCU
+    return d, codes, col
+
+
+def table6_catalog():
+    """``bench_featurize.run``'s ten transforms and their parameters
+    (``bench_featurize.py:850-862``)."""
+    return [("float", {}), ("onehot", {"max_cardinality": 4096}),
+            ("minmax", {}), ("mean_norm", {}), ("zscore", {}),
+            ("binarize", {"threshold": 500.0}), ("quantile", {"q": 4}),
+            ("hash_bucket", {"n_buckets": 32}),
+            ("bucketize", {"boundaries": np.linspace(0, TABLE6_K, 7)[1:-1]}),
+            ("embedding", {"dim": 16})]
 
 
 # -- phase 2 ------------------------------------------------------------------
@@ -569,6 +618,76 @@ def sweep_shape_kernels(wide_ops, wide_ref, rng, dev) -> dict[str, dict]:
     return out
 
 
+def table6_edge_cases(ec, unpack_ops, unpack_ref, hist_ops, hist_ref,
+                      adv_ops, adv_ref, dev, rng) -> dict[str, float]:
+    """``ec.bitunpack_cases`` (every width, n = 0 and off every multiple of
+    32 / db, words past the codes and codes past the words, fields past
+    2**31), ``ec.hist_cases`` (k in {1, 999, 58,112, 58,113, 100,000},
+    codes < 0 and >= k, an unaligned view, 2-D codes, no codes) and
+    ``ec.adv_gather_cases`` (K in {1, 999, 65,536, 65,537, 131,072} x F in
+    {1, 16, 128, 999}, float32 and bfloat16, codes past both edges and the
+    int32 ends, 2-D codes, no codes): bit for bit."""
+    err = {"bitunpack": 0.0, "hist": 0.0, "adv_gather": 0.0}
+    for words, db, n in ec.bitunpack_cases(rng, dev):
+        err["bitunpack"] = max(err["bitunpack"], check_equal(
+            f"bitunpack edge set db={db} n={n}",
+            unpack_ops.bitunpack(words, db, n),
+            unpack_ref.bitunpack_ref(words, db, n)))
+    for codes, k in ec.hist_cases(rng, dev):
+        err["hist"] = max(err["hist"], check_equal(
+            f"hist edge set k={k} codes {tuple(codes.shape)}",
+            hist_ops.hist(codes, k), hist_ref.hist_ref(codes, k)))
+    for table, codes in ec.adv_gather_cases(rng, dev):
+        err["adv_gather"] = max(err["adv_gather"], check_equal(
+            f"adv_gather edge set table {tuple(table.shape)} {table.dtype} "
+            f"codes {tuple(codes.shape)}", adv_ops.adv_gather(table, codes),
+            adv_ref.adv_gather_ref(codes, table)))
+    return err
+
+
+def table6_shape_kernels(unpack_ops, unpack_ref, hist_ops, hist_ref,
+                         adv_ops, adv_ref, words, db, codes, k,
+                         table) -> dict[str, dict]:
+    """The three kernels of the Table 6 path at its shapes: the column's
+    words (``db``-bit) unpacked to its n codes; the counts of those codes;
+    the ``zscore`` ADV (k, 1) gathered over all of them. Bytes: the words
+    the codes need and the codes out; the codes and 4k bytes out; the codes,
+    the table rows they need and the features out. The library calls:
+    ``bincount`` and ``index_select`` (every code is in range here)."""
+    n = codes.numel()
+    s = 32 // db
+    f = table.shape[1]
+    rows_needed = int(torch.unique(codes).numel())
+    if not torch.equal(torch.bincount(codes, minlength=k).int(),
+                       hist_ref.hist_ref(codes, k)):
+        fail("bincount does not compute hist on the Table 6 column")
+    if not torch.equal(torch.index_select(table, 0, codes),
+                       adv_ref.adv_gather_ref(codes, table)):
+        fail("index_select does not compute adv_gather on the Table 6 column")
+    out = {
+        "bitunpack": dict(
+            call=lambda: unpack_ops.bitunpack(words, db, n),
+            plain=lambda: unpack_ref.bitunpack_ref(words, db, n),
+            bytes=4 * -(-n // s) + 4 * n,
+            shape=f"{words.numel()} words at {db} bits -> {n} int32 codes"),
+        "hist": dict(
+            call=lambda: hist_ops.hist(codes, k),
+            plain=lambda: hist_ref.hist_ref(codes, k),
+            library=lambda: torch.bincount(codes, minlength=k),
+            bytes=4 * n + 4 * k,
+            shape=f"{n} int32 codes, k = {k}"),
+        "adv_gather": dict(
+            call=lambda: adv_ops.adv_gather(table, codes),
+            plain=lambda: adv_ref.adv_gather_ref(codes, table),
+            library=lambda: torch.index_select(table, 0, codes),
+            bytes=4 * n + rows_needed * f * table.element_size()
+            + n * f * table.element_size(),
+            shape=f"zscore ({k}, {f}) {table.dtype} by {n} int32 codes"),
+    }
+    measure(out, iters=50, plain_iters=5)
+    return out
+
+
 # -- phase 3 ------------------------------------------------------------------
 
 
@@ -763,11 +882,13 @@ def traditional_features(table, idx: np.ndarray):
 
 def train_path(wd, to_device, adv_ops, wide_ops, pipe, table, wide_codes, y,
                seed, dev, train_kernels, batch=1024, steps=500, drift_steps=200,
-               loop_steps=8) -> None:
+               loop_steps=8):
     """Paper Fig 1/2 on the 2**25-row table: ``bench_pipeline.py``'s ADV and
     traditional loops (``loop_steps`` each, walls and host->device bytes),
     then ``steps`` ADV steps (steps/s, rows/s, the kernels' share of the
-    wall), and :func:`drift_check` over the first ``drift_steps`` steps."""
+    wall). Returns :func:`drift_check` over the first ``drift_steps`` steps,
+    to be called once the path's launch counts are read: its re-stepped
+    batches launch kernels to compare, not to train."""
     cfg = wd.WideDeepConfig(wide_cards=(50, 4), deep_dim=pipe.out_dim,
                             embed_cols=((50, 8),), hidden=(32, 16))
     params0 = wd.init_widedeep(cfg, torch.Generator().manual_seed(seed), dev)
@@ -847,18 +968,28 @@ def train_path(wd, to_device, adv_ops, wide_ops, pipe, table, wide_codes, y,
         f"(mean of the last 20), largest change from one step to the next "
         f"{np.abs(np.diff(card_losses)).max():.6f}; {share:.6f} of the wall "
         f"in the three kernels (launches x their ms at these shapes)")
-    drift_check(wd, adv_ops, pipe, wide_codes, y, step, kept, trajectory,
-                card_losses)
+    return lambda: drift_check(wd, adv_ops, pipe, wide_codes, y, step,
+                               adv_batch, kept, trajectory, card_losses)
 
 
-def drift_check(wd, adv_ops, pipe, wide_codes, y, step, kept, trajectory,
-                card_losses) -> None:
+def drift_check(wd, adv_ops, pipe, wide_codes, y, step, adv_batch, kept,
+                trajectory, card_losses) -> None:
     """The card's first steps again on the CPU through the plain versions.
 
     Gated, step by step: from the card's parameters before step i, the
     CPU's step on the same batch gives a loss within 1e-5 x max(1, |loss|)
     of the card's and parameters within allclose(rtol=1e-4, atol=1e-6) of
     the card's after step i, for every step up to and including the last.
+    Where a hidden unit's pre-activation lies within rounding of zero, the
+    card and the CPU can take different ReLU branches on that row: its
+    gradient then differs by the whole back-propagated term, which no
+    tolerance bounds. So a step that fails on its whole batch is stepped
+    again, on the card and on the CPU from the same parameters, on the
+    batch without the rows where the two devices' branches differ (read
+    from both devices' pre-activations, not from a threshold), and must
+    then hold at the same tolerances; a step that fails with no such row,
+    or fails again without them, fails the run. Each such step is printed
+    with its rows and their largest |pre-activation|.
     Printed, not gated: the CPU run free from the same initial parameters
     (no re-synchronisation), beside the CPU's own run from initial
     parameters scaled by (1 + 2**-23), about one rounding: SGD through
@@ -874,34 +1005,94 @@ def drift_check(wd, adv_ops, pipe, wide_codes, y, step, kept, trajectory,
         return wd.params_from_reference(pytree.tree_map(
             lambda a: a * np.float32(scale), wd.params_to_numpy(p)), "cpu")
 
-    free, nudged = cpu(trajectory[0]), cpu(trajectory[0], 1 + 2 ** -23)
-    worst = param_worst = 0.0
-    free_worst = (0.0, 0)
-    nudged_worst = (0.0, 0)
-    t0 = time.perf_counter()
-    for i, idx in enumerate(kept):
-        args = (torch.from_numpy(np.stack([wide_codes["state"][idx],
+    def cpu_args(idx):
+        return (torch.from_numpy(np.stack([wide_codes["state"][idx],
                                            wide_codes["device"][idx]])),
                 adv_ops.gather_fused_parts(
                     fused_cpu, torch.from_numpy(pipe.plan.host_codes(idx))),
                 torch.from_numpy(y[idx]),
                 [torch.from_numpy(wide_codes["state"][idx])])
-        p_next, loss = step(cpu(trajectory[i]), *args)
-        d = abs(card_losses[i] - float(loss))
-        worst = max(worst, d)
+
+    def pre_activations(p, args):
+        # forward_widedeep's MLP up to its last hidden layer, op for op
+        _, h, _, embed_codes = args
+        h = torch.cat([h] + [tab[c] for tab, c in zip(p["embeds"],
+                                                        embed_codes)], dim=-1)
+        out = []
+        for layer in p["mlp"][:-1]:
+            h = torch.matmul(h, layer["w"]) + layer["b"]
+            out.append(h.cpu())
+            h = torch.relu(h)
+        return out
+
+    def split_rows(p, card_args, p_cpu, args):
+        # rows where the card and the CPU take different ReLU branches, and
+        # the largest |pre-activation| (the CPU's) at a unit that splits
+        rows, largest = torch.zeros(len(args[2]), dtype=torch.bool), 0.0
+        for a, b in zip(pre_activations(p, card_args),
+                        pre_activations(p_cpu, args)):
+            split = (a > 0) != (b > 0)
+            rows |= split.any(dim=1)
+            if split.any():
+                largest = max(largest, float(b[split].abs().max()))
+        return rows.numpy(), largest
+
+    def differences(i, card_loss, card_p, loss, p_next):
+        # the gate's failures for one step, and its largest differences
+        msgs = []
+        d = abs(card_loss - float(loss))
         if d > 1e-5 * max(1.0, abs(float(loss))):
-            fail(f"train parity: step {i} from the card's parameters: loss "
-                 f"{card_losses[i]!r} on the card vs {float(loss)!r} on the "
-                 "CPU")
-        got, _ = pytree.tree_flatten_with_path(
-            wd.params_to_numpy(trajectory[i + 1]))
+            msgs.append(f"train parity: step {i} from the card's parameters: "
+                        f"loss {card_loss!r} on the card vs {float(loss)!r} "
+                        "on the CPU")
+        got, _ = pytree.tree_flatten_with_path(wd.params_to_numpy(card_p))
+        worst_p = 0.0
         for (path, a), b in zip(got, pytree.tree_leaves(
                 wd.params_to_numpy(p_next))):
-            param_worst = max(param_worst, float(np.abs(a - b).max()))
+            worst_p = max(worst_p, float(np.abs(a - b).max()))
             if not np.allclose(a, b, rtol=1e-4, atol=1e-6):
-                fail(f"train parity: parameter {pytree.keystr(path)} after "
-                     f"step {i} differs from the CPU's step by "
-                     f"{np.abs(a - b).max()!r}")
+                msgs.append(f"train parity: parameter {pytree.keystr(path)} "
+                            f"after step {i} differs from the CPU's step by "
+                            f"{np.abs(a - b).max()!r}")
+        return msgs, d, worst_p
+
+    free, nudged = cpu(trajectory[0]), cpu(trajectory[0], 1 + 2 ** -23)
+    worst = param_worst = 0.0
+    free_worst = (0.0, 0)
+    nudged_worst = (0.0, 0)
+    restepped = []
+    t0 = time.perf_counter()
+    for i, idx in enumerate(kept):
+        args = cpu_args(idx)
+        p_next, loss = step(cpu(trajectory[i]), *args)
+        msgs, d, d_p = differences(i, card_losses[i], trajectory[i + 1], loss,
+                                   p_next)
+        if msgs:
+            first, whole = msgs[0], d_p
+            keep = np.ones(idx.size, dtype=bool)
+            largest = 0.0
+            for _ in range(3):
+                sub = idx[keep]
+                card_args = adv_batch(sub)[0]
+                rows, h = split_rows(trajectory[i], card_args,
+                                     cpu(trajectory[i]), cpu_args(sub))
+                if not rows.any():
+                    break
+                largest = max(largest, h)
+                keep[np.flatnonzero(keep)[rows]] = False
+                sub = idx[keep]
+                card_p, card_loss = step(trajectory[i], *adv_batch(sub)[0])
+                p_next, loss = step(cpu(trajectory[i]), *cpu_args(sub))
+                msgs, d, d_p = differences(i, float(card_loss), card_p, loss,
+                                           p_next)
+                if not msgs:
+                    break
+            if msgs:
+                fail(f"{msgs[0]} (on the whole batch: {first}; rows where "
+                     f"the two devices' ReLU branches differ left out: "
+                     f"{int((~keep).sum())})")
+            restepped.append((i, int((~keep).sum()), largest, whole))
+        worst, param_worst = max(worst, d), max(param_worst, d_p)
         free, lf = step(free, *args)
         nudged, ln = step(nudged, *args)
         free_worst = max(free_worst, (abs(card_losses[i] - float(lf)), i))
@@ -911,6 +1102,11 @@ def drift_check(wd, adv_ops, pipe, wide_codes, y, step, kept, trajectory,
         f"the CPU with the free runs): largest |loss difference| {worst!r} "
         f"(limit 1e-5 x max(1, |loss|)); largest parameter difference "
         f"{param_worst!r} (allclose rtol 1e-4, atol 1e-6)")
+    log(f"  steps held without the rows where the card's and the CPU's ReLU "
+        f"branches differ: {len(restepped)} of {len(kept)}" + "".join(
+            f"; step {i}: {n} rows left out, largest |pre-activation| there "
+            f"{h!r}, whole-batch parameter difference {w!r}"
+            for i, n, h, w in restepped))
     log(f"  free runs from the same initial parameters, not gated: card vs "
         f"CPU largest |loss difference| {free_worst[0]!r} at step "
         f"{free_worst[1]}; CPU vs CPU from parameters x (1 + 2**-23) "
@@ -941,10 +1137,101 @@ def cycle_phase(analytics_cycle, dev) -> None:
         fail(f"analytics cycle: purity {r['purity']} not above 0.75")
 
 
+# -- phase 7 ------------------------------------------------------------------
+
+
+def table6_path(AugmentedDictionary, stats, to_device, unpack_ops, hist_ops,
+                adv_ops, d, host_codes, col, dev, rng,
+                batch: int = 65_536) -> None:
+    """Paper Table 6 / §6.1-6.3 on the card, as ``bench_featurize.run``
+    drives it: the catalog on the host, then the column's words unpacked,
+    counted and featurized on the card; every result held against the host
+    (card walls: median of 3 calls, each synchronised)."""
+    n = col.n_rows
+    aug, t = host_clock(lambda: table6_advs(AugmentedDictionary, d))
+    log(f"catalog: {len(aug.advs) - 1} transforms + zscore on K = "
+        f"{d.cardinality} entries in {t:.6f} s; feature widths "
+        f"{ {name: adv.dim for name, adv in aug.advs.items()} }")
+
+    (words, db), t = host_clock(col.device_words)
+    if db != 16 or d.bits != 10:
+        fail(f"Table 6 column packs {d.bits} bits at device width {db}, "
+             "not 10 at 16")
+    words_dev, ts = clocked(lambda: to_device(words.view(np.int32), dev), 1)
+    codes, tu = clocked(lambda: unpack_ops.bitunpack(words_dev, db, n))
+    if not np.array_equal(codes.cpu().numpy(), host_codes):
+        fail("bitunpack of the column's device words differs from its codes")
+    log(f"ship + bitunpack: {words.nbytes} B of {db}-bit words (host view "
+        f"{t:.6f} s, shipped in {ts:.6f} s) -> {n} int32 codes in "
+        f"{tu:.6f} s; all {n} equal the host codes")
+
+    counts, tc = clocked(lambda: hist_ops.hist(codes, d.cardinality))
+    if not np.array_equal(counts.cpu().numpy(), d.counts):
+        fail("hist of the unpacked codes differs from Dictionary.counts")
+    log(f"hist: {d.cardinality} counts of {n} codes in {tc:.6f} s; equal "
+        "to Dictionary.counts")
+    for op in ("sum", "mean", "std", "histogram", "minmax"):
+        fast, tf = host_clock(
+            lambda: getattr(stats, f"{op}_from_dictionary")(col))
+        slow, tsc = host_clock(lambda: getattr(stats, f"{op}_scan")(col))
+        if op == "histogram":
+            same = dict(zip(fast[0].tolist(), fast[1].tolist())) == \
+                dict(zip(slow[0].tolist(), slow[1].tolist()))
+        elif op == "std":
+            # two float64 summation orders: within rounding, not bit equal
+            same = abs(fast - slow) <= 1e-12 * abs(slow)
+        else:
+            same = fast == slow
+        if not same:
+            fail(f"stats.{op}_from_dictionary differs from stats.{op}_scan")
+        shown = "(values, counts)" if op == "histogram" else repr(fast)
+        log(f"  stats.{op}: {shown} from the dictionary in {tf:.6f} s, "
+            f"the scan in {tsc:.6f} s ({tsc / tf:.1f}x)")
+
+    table = to_device(aug["zscore"].table, dev)
+    feats, tg = clocked(lambda: adv_ops.adv_gather(table, codes))
+    want, th = host_clock(lambda: aug.featurize("zscore", host_codes))
+    if feats.shape != want.shape or \
+            not np.array_equal(feats.cpu().numpy(), want):
+        fail("adv_gather of zscore over the column differs from featurize")
+    log(f"adv_gather zscore over the whole column: ({n}, 1) in {tg:.6f} s; "
+        f"host featurize {th:.6f} s; all {n} rows bit-exact")
+
+    batch = min(batch, n)
+    start = int(rng.integers(0, n - batch + 1))
+    batch_codes, host_batch = codes[start:start + batch], \
+        host_codes[start:start + batch]
+    for kind, _ in table6_catalog():
+        name = f"b_{kind}"
+        table = to_device(aug[name].table, dev)
+        feats, tg = clocked(lambda: adv_ops.adv_gather(table, batch_codes))
+        want, th = host_clock(lambda: aug.featurize(name, host_batch))
+        if feats.shape != want.shape or \
+                not np.array_equal(feats.cpu().numpy(), want):
+            fail(f"adv_gather of {name} over the batch differs from "
+                 "featurize")
+        log(f"  {name}: ({batch}, {aug[name].dim}) from rows {start}.."
+            f"{start + batch - 1} in {tg:.6f} s; host featurize {th:.6f} s; "
+            f"all {batch} rows bit-exact")
+
+
+def table6_advs(AugmentedDictionary, d):
+    """The catalog's ten ADVs (``b_<kind>``) and ``zscore`` on ``d``."""
+    aug = AugmentedDictionary(d)
+    for kind, params in table6_catalog():
+        aug.add(f"b_{kind}", kind, **params)
+    aug.add("zscore", "zscore")
+    return aug
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rows-log2", type=int, default=25)
+    ap.add_argument("--train-steps", type=int, default=500,
+                    help="ADV train steps of phase 5")
+    ap.add_argument("--parity-steps", type=int, default=200,
+                    help="of them, how many are held to the CPU's step")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -952,15 +1239,18 @@ def main() -> None:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"src/repro_torch not found beside {Path(__file__).name}")
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.columnar import Table
+    from repro_torch.columnar import Column, Dictionary, Table
     from repro_torch.columnar import query as Q
-    from repro_torch.core import (FeatureExecutor, FeaturePipeline,
-                                  FeaturePlan, FeatureSet)
+    from repro_torch.columnar import stats
+    from repro_torch.core import (AugmentedDictionary, FeatureExecutor,
+                                  FeaturePipeline, FeaturePlan, FeatureSet)
     from repro_torch.core.cycle import analytics_cycle
     from repro_torch.core.pipeline import to_device
     from repro_torch.kernels import build
     from repro_torch.kernels import edge_cases as ec
     from repro_torch.kernels.adv_gather import ops, ref
+    from repro_torch.kernels.bitunpack import ops as unpack_ops
+    from repro_torch.kernels.bitunpack import ref as unpack_ref
     from repro_torch.kernels.hist import ops as hist_ops, ref as hist_ref
     from repro_torch.kernels.predicate_scan import ops as scan_ops
     from repro_torch.kernels.onehot_wide import ops as wide_ops
@@ -968,6 +1258,7 @@ def main() -> None:
     from repro_torch.kernels.predicate_scan import ref as scan_ref
     from repro_torch.models import widedeep as wd
     from repro_torch.serve import FeatureService
+    counters = (ops, scan_ops, hist_ops, wide_ops, unpack_ops)
 
     # -- 1. setup ---------------------------------------------------------------
     phase_t0 = time.perf_counter()
@@ -1022,6 +1313,15 @@ def main() -> None:
     log("pushdown predicates:")
     compiled_kinds(ex_p, {"P1": p1, "P2": p2})
 
+    # paper Table 6's column at the serving table's size
+    t0 = time.perf_counter()
+    d6, codes6, col6 = table6_column(Dictionary, Column,
+                                     np.random.default_rng(args.seed + 9),
+                                     n_rows)
+    log(f"Table 6 column: {n_rows} rows, K = {d6.cardinality}, {d6.bits} "
+        f"bits in {col6.n_imcus} IMCUs ({col6.packed_nbytes} B), device "
+        f"width 16; built in {time.perf_counter() - t0:.3f} s")
+
     log(f"phase 1 (setup) wall: {time.perf_counter() - phase_t0:.3f} s")
 
     # -- 2. kernels vs plain ----------------------------------------------------
@@ -1050,6 +1350,16 @@ def main() -> None:
                     for k in ("onehot_wide", "onehot_wide_backward")})
     sweep_shape_kernels(wide_ops, wide_ref,
                         np.random.default_rng(args.seed + 8), dev)
+    errs.update(table6_edge_cases(ec, unpack_ops, unpack_ref, hist_ops,
+                                  hist_ref, ops, ref, dev,
+                                  np.random.default_rng(args.seed + 10)))
+    words6, db6 = col6.device_words()
+    kernels.update(table6_shape_kernels(
+        unpack_ops, unpack_ref, hist_ops, hist_ref, ops, ref,
+        to_device(words6.view(np.int32), dev), db6, to_device(codes6, dev),
+        d6.cardinality,
+        to_device(table6_advs(AugmentedDictionary, d6)["zscore"].table, dev)))
+    log("  Table 6 edge cases hold: bitunpack, hist, adv_gather")
     log(f"phase 2 (kernels vs plain) wall: "
         f"{time.perf_counter() - phase_t0:.3f} s")
 
@@ -1064,7 +1374,7 @@ def main() -> None:
     pushdown_reqs = [req_rng.integers(0, n_rows, int(req_rng.choice(sizes)))
                      for _ in range(256)]
     torch.cuda.reset_peak_memory_stats()
-    for counter in (ops, scan_ops, hist_ops, wide_ops):
+    for counter in counters:
         counter.reset_launches()
 
     with FeatureService(plan_p, prefetch=2, buckets=(bucket,),
@@ -1110,8 +1420,10 @@ def main() -> None:
         f"launches, bytes_h2d {st['bytes_h2d']}; {checked} sampled rows "
         f"bit-exact; {busy_share(kernels, 'gather_fused_parts', st):.6f} of "
         "the wall in the kernel")
-    launches = dict(ops.LAUNCHES)
-    log(f"kernels launched on the serving path: {launches}")
+    launches = {k: ops.LAUNCHES[k] for k in
+                ("adv_gather_packed_rows", "adv_gather_packed",
+                 "gather_fused_parts")}
+    log(f"kernels launched on the serving path: {dict(ops.LAUNCHES)}")
     log(f"max_memory_allocated: {torch.cuda.max_memory_allocated()} B")
     idle = [k for k, v in launches.items() if v <= 0]
     if idle:
@@ -1121,12 +1433,13 @@ def main() -> None:
     # -- 4. pushdown path ----------------------------------------------------------
     phase_t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    for counter in (ops, scan_ops, hist_ops, wide_ops):
+    for counter in counters:
         counter.reset_launches()
     pushdown_path(Q, FeatureService, ex_p, plan_p, table, p1, p2, "device",
                   "income", dict(prefetch=2, buckets=(bucket,),
                                  coalesce=coalesce), pushdown_reqs)
-    pushed = {**scan_ops.LAUNCHES, **hist_ops.LAUNCHES}
+    pushed = {**scan_ops.LAUNCHES,
+              "masked_counts": hist_ops.LAUNCHES["masked_counts"]}
     log(f"kernels launched on the pushdown path: "
         f"{dict(**pushed, **ops.LAUNCHES)}")
     log(f"max_memory_allocated: {torch.cuda.max_memory_allocated()} B")
@@ -1141,10 +1454,12 @@ def main() -> None:
     if torch.backends.cuda.matmul.allow_tf32:
         fail("TF32 matmuls are on: the train path's parity needs full float32")
     torch.cuda.reset_peak_memory_stats()
-    for counter in (ops, scan_ops, hist_ops, wide_ops):
+    for counter in counters:
         counter.reset_launches()
-    train_path(wd, to_device, ops, wide_ops, pipe, table, wide_codes, y,
-               args.seed, dev, train_kernels)
+    parity = train_path(wd, to_device, ops, wide_ops, pipe, table, wide_codes,
+                        y, args.seed, dev, train_kernels,
+                        steps=args.train_steps,
+                        drift_steps=args.parity_steps)
     trained = {"gather_fused_parts": ops.LAUNCHES["gather_fused_parts"],
                **wide_ops.LAUNCHES}
     log(f"kernels launched on the train path: "
@@ -1154,15 +1469,16 @@ def main() -> None:
     if idle:
         fail(f"kernels never launched on the train path: {idle}")
     launches.update(wide_ops.LAUNCHES)
+    parity()
     log(f"phase 5 (train path) wall: {time.perf_counter() - phase_t0:.3f} s")
 
     # -- 6. analytics cycle (paper §7) ----------------------------------------------
     phase_t0 = time.perf_counter()
-    for counter in (ops, scan_ops, hist_ops, wide_ops):
+    for counter in counters:
         counter.reset_launches()
     cycle_phase(analytics_cycle, dev)
-    cycled = {**ops.LAUNCHES, **scan_ops.LAUNCHES, **hist_ops.LAUNCHES,
-              **wide_ops.LAUNCHES}
+    cycled = {k: v for counter in counters
+              for k, v in counter.LAUNCHES.items()}
     log(f"kernels launched on the analytics cycle: {cycled} (its models "
         "have no wide columns, C = 0: the wide term is zero without a "
         "launch, and its deep features are host ADV lookups)")
@@ -1171,7 +1487,27 @@ def main() -> None:
     log(f"phase 6 (analytics cycle) wall: "
         f"{time.perf_counter() - phase_t0:.3f} s")
 
-    # -- 7. report ------------------------------------------------------------------
+    # -- 7. Table 6 on the card (paper Table 6, §6.1-6.3) ------------------------------
+    phase_t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    for counter in counters:
+        counter.reset_launches()
+    table6_path(AugmentedDictionary, stats, to_device, unpack_ops, hist_ops,
+                ops, d6, codes6, col6, dev,
+                np.random.default_rng(args.seed + 11))
+    table6 = {"bitunpack": unpack_ops.LAUNCHES["bitunpack"],
+              "hist": hist_ops.LAUNCHES["hist"],
+              "adv_gather": ops.LAUNCHES["adv_gather"]}
+    log(f"kernels launched on the Table 6 path: "
+        f"{ {k: v for c in counters for k, v in c.LAUNCHES.items()} }")
+    log(f"max_memory_allocated: {torch.cuda.max_memory_allocated()} B")
+    idle = [k for k, v in table6.items() if v <= 0]
+    if idle:
+        fail(f"kernels never launched on the Table 6 path: {idle}")
+    launches.update(table6)
+    log(f"phase 7 (Table 6) wall: {time.perf_counter() - phase_t0:.3f} s")
+
+    # -- 8. report ------------------------------------------------------------------
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],

@@ -12,6 +12,10 @@
   the same stream (kernel 2).
 - :func:`gather_fused_parts` — (C, n) int32 codes -> features, the clamp
   fused into the kernel (kernel 3).
+- :func:`adv_gather` — one (K, F) ADV table, float32 or bfloat16, gathered
+  by int32 codes of any shape, each clamped to [0, K - 1] (kernel 4, the
+  Table 6 featurization path). One kernel serves every K: the reference's
+  switch to ``jnp.take`` past K = 2**16 computed the same function.
 
 Each wrapper checks its inputs and raises on anything the kernel does not
 take. For CPU tensors it computes the plain version (``ref.py``); for CUDA
@@ -32,7 +36,7 @@ from repro_torch.kernels.adv_gather import ref
 from repro_torch.kernels.launch import check, device_kind, raise_on, stream_ptr
 
 LAUNCHES = {"adv_gather_packed_rows": 0, "adv_gather_packed": 0,
-            "gather_fused_parts": 0}
+            "gather_fused_parts": 0, "adv_gather": 0}
 
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _SIGNATURES = {
@@ -41,9 +45,11 @@ _SIGNATURES = {
     "adv_gather_packed": ([_P, _I, _I, _P, _I64, _P, _P, _P, _P, _P, _I, _P],
                           _I),
     "gather_fused_parts": ([_P, _I64, _P, _P, _P, _P, _I, _P], _I),
+    "adv_gather": ([_P, _I64, _P, _I, _I64, _I, _P, _P], _I),
     "adv_gather_error_string": ([_I], ctypes.c_char_p),
 }
 _INT32_MAX = (1 << 31) - 1
+_TABLE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_launches() -> None:
@@ -244,4 +250,34 @@ def gather_fused_parts(fused: FusedTables,
         stream_ptr(device)),
         lib.adv_gather_error_string, "gather_fused_parts")
     LAUNCHES["gather_fused_parts"] += 1
+    return out
+
+
+# -- kernel 4: one table, codes of any shape ----------------------------------------
+
+
+def adv_gather(table: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """table (K, F) float32 or bfloat16, codes int32 of any shape ->
+    (*codes.shape, F) in the table's dtype: ``out[..., :] =
+    table[clamp(codes[...], 0, K - 1), :]``, the table's rows bit for bit."""
+    device = table.device
+    if table.dtype not in _TABLE_DTYPES:
+        raise TypeError(f"table must be float32 or bfloat16, got "
+                        f"{table.dtype}")
+    check("table", table, table.dtype, 2, device)
+    check("codes", codes, torch.int32, codes.dim(), device)
+    k, f = table.shape
+    if not 1 <= k <= _INT32_MAX:
+        raise ValueError(f"the table needs 1 to 2**31 - 1 rows, got {k}")
+    if device_kind(device) == "cpu":
+        return ref.adv_gather_ref(codes, table)
+    out = torch.empty((*codes.shape, f), dtype=table.dtype, device=device)
+    if out.numel() == 0:
+        return out
+    lib = _lib()
+    raise_on(lib.adv_gather(
+        codes.data_ptr(), codes.numel(), table.data_ptr(), k, f,
+        table.element_size(), out.data_ptr(), stream_ptr(device)),
+        lib.adv_gather_error_string, "adv_gather")
+    LAUNCHES["adv_gather"] += 1
     return out

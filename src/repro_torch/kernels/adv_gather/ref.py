@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three ADV gather kernels.
+"""Plain PyTorch versions of the four ADV gather kernels.
 
 Each computes what its CUDA kernel computes, by direct tensor indexing, on
 whatever device its inputs are on. The wrappers in ``ops.py`` use them for
@@ -13,6 +13,13 @@ the reference's ``astype(int32)`` followed by ``clip``.
 from __future__ import annotations
 
 import torch
+
+
+def adv_gather_ref(codes: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """out[..., :] = table[codes[...], :]: codes of any shape, each clamped
+    to [0, K - 1] (the reference's ``take(mode="clip")``) -> (*codes.shape,
+    F) in the table's dtype."""
+    return table[codes.to(torch.int64).clamp(0, table.shape[0] - 1)]
 
 
 def packed_codes_ref(flat_words: torch.Tensor, word_off: int, db: int,

@@ -1,4 +1,5 @@
-"""Device word widths for packed code streams (host helper).
+"""Device word widths for packed code streams (the unpack kernel is
+``bitunpack.cu``, its wrapper ``ops.py``).
 
 The device packs each column's codes at a width that divides 32
 ({1,2,4,8,16,32}), so no field straddles a word: row ``r`` is subfield

@@ -1,6 +1,7 @@
 """Edge-case inputs that hold the CUDA kernels against their plain versions
 on a card: a random packed stream at every device width, the scan's term
-sets, the masked counts' cases and the one-hot wide layer's grid.
+sets, the masked counts' cases, the one-hot wide layer's grid, and the
+Table 6 path's bit-unpack, counts and single-table gather cases.
 
 ``chip_smoke.py`` and ``tests/test_torch_kernels_cuda.py`` both draw their
 edge sets from here, so the two stay one set. Nothing here launches a
@@ -98,3 +99,71 @@ def onehot_wide_cases(rng: np.random.Generator, device, cs=ONEHOT_CS,
                     g = torch.from_numpy(rng.standard_normal(
                         (n, f), dtype=np.float32)).to(device)
                     yield codes, w, g
+
+
+# int32 codes at both ends of the range, out of range of every table
+_INT32_ENDS = np.array([-(1 << 31), -1, (1 << 31) - 1], np.int64)
+
+
+def _codes_with_ends(rng: np.random.Generator, k: int, n: int) -> np.ndarray:
+    """n int32 codes in [-3, k + 3), the int32 ends and k among them."""
+    codes = rng.integers(-3, k + 3, n)
+    at = rng.permutation(n)[:_INT32_ENDS.size + 1]
+    codes[at] = np.append(_INT32_ENDS, k)[:at.size]
+    return codes.astype(np.int32)
+
+
+def bitunpack_cases(rng: np.random.Generator, device, n_words: int = 1000):
+    """Yield ``(words, db, n)`` for the bit-unpack: random words (32-bit
+    fields past 2**31) at every width, n = 0, n off every multiple of
+    32 / db and of 4, words past the n codes, and codes past the last word
+    (they read zero words)."""
+    words = torch.from_numpy(rng.integers(0, 1 << 32, n_words,
+                                          dtype=np.uint64).astype(np.uint32)
+                             .view(np.int32)).to(device)
+    for db in DBS:
+        s = 32 // db
+        cap = n_words * s
+        for n in (0, 1, 33, cap // 2 + 1, cap, cap + 2 * s + 1):
+            yield words, db, n
+
+
+# the counts' k: one bin, the Table 6 column's 999, and the masked counts'
+# shared-memory limits
+HIST_KS = (1, 999) + SHARED_LIMIT_KS
+
+
+def hist_cases(rng: np.random.Generator, device, n: int = 20_001):
+    """Yield ``(codes, k)`` for the counts at each of :data:`HIST_KS`:
+    codes below 0 and >= k among them (dropped), n off every multiple of 4,
+    a view that is not 16-byte aligned, 2-D codes and no codes."""
+    for k in HIST_KS:
+        codes = torch.from_numpy(_codes_with_ends(rng, k, n)).to(device)
+        yield codes, k
+        yield codes[1:], k
+        yield codes[:n - 1].view(100, (n - 1) // 100), k
+        yield codes[:0], k
+
+
+# the single-table gather's grid: every (K, F)
+ADV_KS = (1, 999, 65_536, 65_537, 131_072)
+ADV_FS = (1, 16, 128, 999)
+
+
+def adv_gather_cases(rng: np.random.Generator, device, n: int = 2_001,
+                     ks=ADV_KS, fs=ADV_FS):
+    """Yield ``(table, codes)`` for the single-table gather over every
+    (K, F) of the grid, float32 and bfloat16: 1-D codes with codes below 0,
+    >= K and the int32 ends among them (they clamp to the table's edge
+    rows), 2-D codes and no codes. The tables are made on ``device`` by a
+    generator seeded from ``rng`` (the largest is 131,072 x 999)."""
+    gen = torch.Generator(device=device).manual_seed(
+        int(rng.integers(1 << 31)))
+    for k in ks:
+        for f in fs:
+            table = torch.randn((k, f), generator=gen, device=device)
+            codes = torch.from_numpy(_codes_with_ends(rng, k, n)).to(device)
+            for t in (table, table.to(torch.bfloat16)):
+                yield t, codes
+                yield t, codes[:n - 1].view(40, (n - 1) // 40)
+                yield t, codes[:0]

@@ -125,8 +125,10 @@ def test_cpu_wrappers_run_plain_versions_without_launches():
     ops.adv_gather_packed_rows(words, wmeta, fused, rows)
     ops.adv_gather_packed(words, wmeta, fused, rows[:1], 64)
     ops.gather_fused_parts(fused, torch.zeros((len(DBS), 8), dtype=torch.int32))
+    ops.adv_gather(torch.from_numpy(tables[0]), rows)
     assert ops.LAUNCHES == {"adv_gather_packed_rows": 0,
-                            "adv_gather_packed": 0, "gather_fused_parts": 0}
+                            "adv_gather_packed": 0, "gather_fused_parts": 0,
+                            "adv_gather": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():

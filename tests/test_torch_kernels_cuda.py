@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on a card: the
-three ADV gathers, the predicate scan, the masked counts, and the one-hot
-wide layer with its gradient.
+three ADV gathers, the predicate scan, the masked counts, the one-hot
+wide layer with its gradient, and the Table 6 path's bit-unpack, counts
+and single-table gather.
 
 Needs a CUDA device and ``nvcc`` (the kernels build at first use); every
 test skips without a card. Imports neither JAX nor the reference package,
@@ -14,6 +15,8 @@ import torch
 
 from repro_torch.kernels import edge_cases
 from repro_torch.kernels.adv_gather import ops, ref
+from repro_torch.kernels.bitunpack import ops as unpack_ops
+from repro_torch.kernels.bitunpack import ref as unpack_ref
 from repro_torch.kernels.hist import ops as hist_ops
 from repro_torch.kernels.hist import ref as hist_ref
 from repro_torch.kernels.onehot_wide import ops as wide_ops
@@ -65,6 +68,8 @@ def test_kernels_match_plain_versions_on_card(cuda, seed):
          ref.adv_gather_packed_ref(flat, wmeta, fused, starts, 256)),
         (ops.gather_fused_parts(fused, codes),
          ref.gather_fused_parts_ref(fused, codes)),
+        (ops.adv_gather(torch.from_numpy(tables[3]).to(cuda), codes),
+         ref.adv_gather_ref(codes, torch.from_numpy(tables[3]).to(cuda))),
     ]
     torch.cuda.synchronize()
     for got, want in pairs:
@@ -172,3 +177,51 @@ def test_onehot_wide_autograd_launches_both_kernels_on_card(cuda):
         wide_ref.backward_sum_bound(codes, g, 50)).all()
     with pytest.raises(TypeError):
         wide_ops.onehot_wide_backward(codes, g.to(torch.bfloat16), 50)
+
+
+@pytest.mark.cuda
+def test_bitunpack_kernel_matches_plain_version_on_card(cuda):
+    """``edge_cases.bitunpack_cases``: every width, random words (32-bit
+    fields past 2**31), n = 0, n off every multiple of 32 / db and of 4,
+    words past the n codes and codes past the last word. Codes equal the
+    plain version's; each nonempty call launches once."""
+    for words, db, n in edge_cases.bitunpack_cases(np.random.default_rng(8),
+                                                   cuda):
+        before = unpack_ops.LAUNCHES["bitunpack"]
+        got = unpack_ops.bitunpack(words, db, n)
+        want = unpack_ref.bitunpack_ref(words, db, n)
+        torch.cuda.synchronize()
+        assert got.is_cuda and got.dtype == torch.int32
+        assert torch.equal(got, want), (db, n)
+        assert unpack_ops.LAUNCHES["bitunpack"] == before + int(n > 0)
+
+
+@pytest.mark.cuda
+def test_hist_kernel_matches_plain_version_on_card(cuda):
+    """``edge_cases.hist_cases``: k in {1, 999, 58,112, 58,113, 100,000}
+    (shared and global counters), codes below 0 and >= k (dropped), an
+    unaligned view, 2-D codes and no codes."""
+    for codes, k in edge_cases.hist_cases(np.random.default_rng(9), cuda):
+        before = hist_ops.LAUNCHES["hist"]
+        got = hist_ops.hist(codes, k)
+        want = hist_ref.hist_ref(codes, k)
+        torch.cuda.synchronize()
+        assert got.is_cuda and torch.equal(got, want), (k, codes.shape)
+        assert hist_ops.LAUNCHES["hist"] == before + int(codes.numel() > 0)
+
+
+@pytest.mark.cuda
+def test_single_table_gather_matches_plain_version_on_card(cuda):
+    """``edge_cases.adv_gather_cases``: K in {1, 999, 65,536, 65,537,
+    131,072} x F in {1, 16, 128, 999}, float32 and bfloat16, codes below 0,
+    >= K and the int32 ends among them, 2-D codes and no codes: the
+    gathered rows equal the plain version's bit for bit."""
+    for table, codes in edge_cases.adv_gather_cases(
+            np.random.default_rng(10), cuda):
+        before = ops.LAUNCHES["adv_gather"]
+        got = ops.adv_gather(table, codes)
+        want = ref.adv_gather_ref(codes, table)
+        torch.cuda.synchronize()
+        assert got.dtype == table.dtype and got.shape == want.shape
+        assert torch.equal(got, want), (tuple(table.shape), table.dtype)
+        assert ops.LAUNCHES["adv_gather"] == before + int(codes.numel() > 0)
