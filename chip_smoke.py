@@ -23,11 +23,17 @@ checkout's sources (into build/torch_ext/) and needs one card. Phases:
    edge-case set (widths 1-32, codes past every table, rows past the
    stream, n off every multiple of 32, empty and full selections, LUT
    clamps, k = 1, codes >= k, k past the shared-memory counters; for the
-   wide layer C in {0, 1, 8}, N in {0, 1, 33, 1024}, K in {1, 4, 600,
-   65537}, F in {1, 129}, codes -1, K, 2**31 - 1, -2**31, bf16; for the
-   Table 6 kernels ``edge_cases``' bit-unpack, counts and single-table
-   gather sets). Bit for bit, except the wide gradient (float atomics),
-   which is held to the float32 bound of two summation orders. Median
+   packed-rows gather out_dims 1, 31, 33, 58 and 200 at 1, 7, 33 and
+   5,000 rows; for the wide layer C in {0, 1, 8}, N in {0, 1, 33, 1024}, K
+   in {1, 4, 600, 65537}, F in {1, 129}, codes -1, K, 2**31 - 1, -2**31,
+   bf16, and (2, 200,000, 1,000, 64), (2, 8,192, 50, 1) and (3, 20,000,
+   3, 2), where the gradient takes its grouped route; for the Table 6
+   kernels ``edge_cases``' bit-unpack, counts and single-table gather
+   sets, the gather also at F in {1, 3, 16, 999} with n in {1, 3, 5,
+   4097} and on views not 16-byte aligned). Bit for bit;
+   the wide gradient against its plain version run on CPU copies of the
+   inputs (``index_add_`` on the card adds with atomics, in no fixed
+   order), and bit-equal across two launches. Median
    times of both, the kernels' both back to back and after an L2 flush,
    and where one PyTorch call computes the same function, that call's
    (``embedding_bag`` and its backward for the wide layer, also at the JAX
@@ -89,6 +95,7 @@ from __future__ import annotations
 
 import argparse
 import io
+import itertools
 import json
 import statistics
 import subprocess
@@ -261,39 +268,40 @@ def table6_catalog():
 
 
 def check_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Fail unless ``got`` equals ``want`` element for element, compared on
+    ``got``'s device (a CPU ``want`` is copied there); the largest
+    difference is then 0.0."""
     torch.cuda.synchronize()
     if got.dtype != want.dtype:
         fail(f"{name}: kernel gives {got.dtype}, its plain version "
              f"{want.dtype}")
-    # numpy has no bfloat16; widening to float32 is exact
-    g, w = (t.float().cpu().numpy() if t.dtype == torch.bfloat16
-            else t.cpu().numpy() for t in (got, want))
-    if g.shape != w.shape or not np.array_equal(g, w):
-        fail(f"{name}: kernel differs from its plain version "
-             f"(shapes {g.shape} vs {w.shape}, {got.dtype})")
-    return float(np.abs(g.astype(np.float64) - w).max()) if g.size else 0.0
+    if got.shape != want.shape or not torch.equal(got, want.to(got.device)):
+        fail(f"{name}: kernel differs from its plain version (shapes "
+             f"{tuple(got.shape)} vs {tuple(want.shape)}, {got.dtype})")
+    return 0.0
 
 
-def check_within(bound: torch.Tensor):
-    """A check that holds the kernel within ``bound`` of its plain version,
-    entry by entry (the gradient's float atomics sum in no fixed order)."""
-    def check(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
-        torch.cuda.synchronize()
-        if got.shape != want.shape or got.dtype != want.dtype:
-            fail(f"{name}: kernel gives {tuple(got.shape)} {got.dtype}, "
-                 f"plain {tuple(want.shape)} {want.dtype}")
-        err = (got.double() - want.double()).abs()
-        if not bool((err <= bound.double()).all()):
-            fail(f"{name}: kernel differs from its plain version by "
-                 f"{float(err.max())}, past the summation bound")
-        return float(err.max()) if err.numel() else 0.0
+def gradient_check(wide_ops, wide_ref, codes: torch.Tensor, g: torch.Tensor,
+                   k: int):
+    """A check for the wide gradient: bit for bit against its plain version
+    run on CPU copies of the inputs (the order the kernel keeps; on the
+    card ``index_add_`` adds with atomics, in no fixed order), and bit-equal
+    to a second launch on the same inputs."""
+    want = wide_ref.onehot_wide_backward_ref(codes.cpu(), g.cpu(), k)
+
+    def check(name: str, got: torch.Tensor, _plain) -> float:
+        err = check_equal(f"{name} (vs the CPU)", got, want)
+        check_equal(f"{name} (a second launch vs the first)",
+                    wide_ops.onehot_wide_backward(codes, g, k), got)
+        return err
     return check
 
 
 def gather_edge_cases(ec, ops, ref, dev, rng) -> dict[str, float]:
     """Widths 1-32 mixed across columns, random words (codes past every
     table, 32-bit fields past 2**31), rows at word boundaries and past the
-    stream, negative and oversized int32 codes."""
+    stream, negative and oversized int32 codes; for the packed rows also
+    ``ec.packed_rows_cases`` (out_dims 1 to 200, 1 to 5,000 rows)."""
     cards, dims, cap = (2, 3, 11, 200, 3000, 1000), (1, 3, 2, 5, 2, 1), 4096
     tables = [rng.standard_normal((k, f)).astype(np.float32)
               for k, f in zip(cards, dims)]
@@ -301,6 +309,14 @@ def gather_edge_cases(ec, ops, ref, dev, rng) -> dict[str, float]:
     fused = ops.fuse_tables(tables, dev)
     rows = np.concatenate([[0, 1, 15, 16, 31, 32, 33, cap - 1, cap,
                             10 ** 9], rng.integers(0, cap, 20000)])
+    rows_err = 0.0
+    for flat_c, wmeta_c, fused_c, rows_c in ec.packed_rows_cases(rng, dev):
+        rows_err = max(rows_err, check_equal(
+            f"adv_gather_packed_rows edge set out_dim {fused_c.out_dim} "
+            f"rows {rows_c.numel()}",
+            ops.adv_gather_packed_rows(flat_c, wmeta_c, fused_c, rows_c),
+            ref.adv_gather_packed_rows_ref(flat_c, wmeta_c, fused_c,
+                                           rows_c)))
     rows = torch.from_numpy(rows.astype(np.int32)).to(dev)
     starts = torch.tensor([0, 32, 1024, cap - 512], dtype=torch.int32,
                           device=dev)
@@ -308,10 +324,10 @@ def gather_edge_cases(ec, ops, ref, dev, rng) -> dict[str, float]:
         [rng.integers(-5, k + 9, 20000) for k in cards]).astype(np.int32)
     ).to(dev)
     return {
-        "adv_gather_packed_rows": check_equal(
+        "adv_gather_packed_rows": max(rows_err, check_equal(
             "adv_gather_packed_rows edge cases",
             ops.adv_gather_packed_rows(flat, wmeta, fused, rows),
-            ref.adv_gather_packed_rows_ref(flat, wmeta, fused, rows)),
+            ref.adv_gather_packed_rows_ref(flat, wmeta, fused, rows))),
         "adv_gather_packed": check_equal(
             "adv_gather_packed edge cases",
             ops.adv_gather_packed(flat, wmeta, fused, starts, 512),
@@ -507,10 +523,13 @@ def pushdown_shape_kernels(scan_ops, scan_ref, hist_ops, hist_ref, ex_p,
 def wide_edge_cases(ec, wide_ops, wide_ref, dev, rng) -> dict[str, float]:
     """``ec.onehot_wide_cases``: C in {0, 1, 8}, N in {0, 1, 33, 1024},
     K in {1, 4, 600, 65537}, F in {1, 129}, codes -1, K, 2**31 - 1 and
-    -2**31 among them. Forward bit for bit in float32 and bfloat16; the
-    gradient within the summation bound of its plain version."""
+    -2**31 among them, and ``ec.ONEHOT_GROUPED_SHAPES``, where the gradient
+    takes its grouped route. Forward bit for bit in float32 and bfloat16; the
+    gradient bit for bit against the CPU and across two launches."""
     err = {"onehot_wide": 0.0, "onehot_wide_backward": 0.0}
-    for codes, w, g in ec.onehot_wide_cases(rng, dev):
+    for codes, w, g in itertools.chain(ec.onehot_wide_cases(rng, dev),
+                                       ec.onehot_wide_grouped_cases(rng,
+                                                                    dev)):
         k = w.shape[1]
         name = f"(C, N, K, F) = {tuple(codes.shape) + tuple(w.shape[1:])}"
         err["onehot_wide"] = max(err["onehot_wide"], check_equal(
@@ -520,11 +539,10 @@ def wide_edge_cases(ec, wide_ops, wide_ref, dev, rng) -> dict[str, float]:
         check_equal(f"onehot_wide bf16 edge set {name}",
                     wide_ops.onehot_wide(codes, w16),
                     wide_ref.onehot_wide_ref(codes, w16))
-        check = check_within(wide_ref.backward_sum_bound(codes, g, k))
+        check = gradient_check(wide_ops, wide_ref, codes, g, k)
         err["onehot_wide_backward"] = max(err["onehot_wide_backward"], check(
             f"onehot_wide_backward edge set {name}",
-            wide_ops.onehot_wide_backward(codes, g, k),
-            wide_ref.onehot_wide_backward_ref(codes, g, k)))
+            wide_ops.onehot_wide_backward(codes, g, k), None))
     return err
 
 
@@ -534,8 +552,9 @@ def wide_entries(wide_ops, wide_ref, codes: torch.Tensor, w: torch.Tensor,
     PyTorch call that computes the same function: ``embedding_bag`` (sum,
     zero weight on out-of-range codes) over W as a (C*K, F) table, and its
     backward. Bytes: forward, the codes, each (c, code) row of W the codes
-    need, the output; backward, the codes, g and dW (its zero fill is part
-    of the output). Operations: one float32 add per (c, n, f)."""
+    need, the output; backward, the codes, g and dW (its zero entries are
+    part of the output). Operations: one float32 add per (c, n, f). The
+    gradient is held bit for bit to the CPU and across two launches."""
     import torch.nn.functional as F
     c, n = codes.shape
     _, k, f = w.shape
@@ -566,7 +585,7 @@ def wide_entries(wide_ops, wide_ref, codes: torch.Tensor, w: torch.Tensor,
         "onehot_wide_backward": dict(
             call=lambda: wide_ops.onehot_wide_backward(codes, g, k),
             plain=lambda: wide_ref.onehot_wide_backward_ref(codes, g, k),
-            check=check_within(wide_ref.backward_sum_bound(codes, g, k)),
+            check=gradient_check(wide_ops, wide_ref, codes, g, k),
             library=lambda: torch.autograd.grad(lib_out, lib_w, g,
                                                 retain_graph=True)[0],
             bytes=4 * c * n + 4 * n * f + 4 * c * k * f,
@@ -626,7 +645,9 @@ def table6_edge_cases(ec, unpack_ops, unpack_ref, hist_ops, hist_ref,
     codes < 0 and >= k, an unaligned view, 2-D codes, no codes) and
     ``ec.adv_gather_cases`` (K in {1, 999, 65,536, 65,537, 131,072} x F in
     {1, 16, 128, 999}, float32 and bfloat16, codes past both edges and the
-    int32 ends, 2-D codes, no codes): bit for bit."""
+    int32 ends, 2-D codes, no codes) and ``ec.adv_gather_shape_cases`` (F
+    in {1, 3, 16, 999}, n in {1, 3, 5, 4097}, views not 16-byte aligned):
+    bit for bit."""
     err = {"bitunpack": 0.0, "hist": 0.0, "adv_gather": 0.0}
     for words, db, n in ec.bitunpack_cases(rng, dev):
         err["bitunpack"] = max(err["bitunpack"], check_equal(
@@ -641,6 +662,12 @@ def table6_edge_cases(ec, unpack_ops, unpack_ref, hist_ops, hist_ref,
         err["adv_gather"] = max(err["adv_gather"], check_equal(
             f"adv_gather edge set table {tuple(table.shape)} {table.dtype} "
             f"codes {tuple(codes.shape)}", adv_ops.adv_gather(table, codes),
+            adv_ref.adv_gather_ref(codes, table)))
+    for table, codes in ec.adv_gather_shape_cases(rng, dev):
+        err["adv_gather"] = max(err["adv_gather"], check_equal(
+            f"adv_gather edge set table {tuple(table.shape)} {table.dtype} "
+            f"codes ({codes.numel()},) at byte offset "
+            f"{codes.data_ptr() % 16}", adv_ops.adv_gather(table, codes),
             adv_ref.adv_gather_ref(codes, table)))
     return err
 
@@ -1326,8 +1353,8 @@ def main() -> None:
 
     # -- 2. kernels vs plain ----------------------------------------------------
     phase_t0 = time.perf_counter()
-    log("kernels vs plain versions (bit for bit; the wide gradient within "
-        "the float32 bound of two summation orders):")
+    log("kernels vs plain versions (bit for bit; the wide gradient against "
+        "the CPU and across two launches):")
     errs = gather_edge_cases(ec, ops, ref, dev,
                              np.random.default_rng(args.seed + 1))
     errs.update(pushdown_edge_cases(ec, scan_ops, scan_ref, hist_ops,

@@ -41,7 +41,7 @@ LAUNCHES = {"adv_gather_packed_rows": 0, "adv_gather_packed": 0,
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _SIGNATURES = {
     "adv_gather_packed_rows": ([_P, _I64, _P, _I64, _P, _P, _P, _P, _P, _I,
-                                _P], _I),
+                                _I, _P], _I),
     "adv_gather_packed": ([_P, _I, _I, _P, _I64, _P, _P, _P, _P, _P, _I, _P],
                           _I),
     "gather_fused_parts": ([_P, _I64, _P, _P, _P, _P, _I, _P], _I),
@@ -175,7 +175,7 @@ def adv_gather_packed_rows(flat_words: torch.Tensor, wmeta: torch.Tensor,
         rows.data_ptr(), n, flat_words.data_ptr(), flat_words.numel(),
         wmeta.data_ptr(), fused.meta.data_ptr(), fused.col_of.data_ptr(),
         fused.tables.data_ptr(), out.data_ptr(), fused.out_dim,
-        stream_ptr(device)),
+        fused.n_tables, stream_ptr(device)),
         lib.adv_gather_error_string, "adv_gather_packed_rows")
     LAUNCHES["adv_gather_packed_rows"] += 1
     return out

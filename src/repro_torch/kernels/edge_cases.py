@@ -1,7 +1,9 @@
 """Edge-case inputs that hold the CUDA kernels against their plain versions
-on a card: a random packed stream at every device width, the scan's term
-sets, the masked counts' cases, the one-hot wide layer's grid, and the
-Table 6 path's bit-unpack, counts and single-table gather cases.
+on a card: a random packed stream at every device width, the packed-rows
+gather's plans and row counts, the scan's term sets, the masked counts'
+cases, the one-hot wide layer's grid (with a shape for its gradient's
+grouped route), and the Table 6 path's bit-unpack, counts and single-table
+gather cases.
 
 ``chip_smoke.py`` and ``tests/test_torch_kernels_cuda.py`` both draw their
 edge sets from here, so the two stay one set. Nothing here launches a
@@ -31,6 +33,44 @@ def random_stream(rng: np.random.Generator, cap: int, device,
     offs = [int(o) for o in np.cumsum([0] + [w.size for w in words])[:-1]]
     flat = torch.from_numpy(np.concatenate(words).view(np.int32)).to(device)
     return flat, ops.word_meta(offs, dbs, device), offs
+
+
+# the packed-rows gather's plans: (stream column, K, F) per table, over a
+# random_stream at DBS; out_dims 1, 31, 33, 58 (the serving widths 8/8/8/2)
+# and 200, most K below 2**db so codes clamp
+PACKED_ROWS_PLANS = (
+    ((3, 200, 1),),
+    ((0, 2, 1), (1, 3, 3), (2, 11, 2), (3, 200, 5), (4, 3000, 10),
+     (5, 1000, 10)),
+    ((0, 2, 1), (1, 3, 3), (2, 11, 2), (3, 200, 5), (4, 3000, 11),
+     (5, 1000, 11)),
+    ((3, 72, 2), (3, 50, 50), (3, 230, 2), (1, 4, 4)),
+    ((0, 2, 1), (1, 3, 3), (2, 11, 2), (3, 200, 5), (4, 3000, 89),
+     (5, 1000, 100)),
+)
+# 33 rows end one row past any tile of up to 32 rows
+PACKED_ROWS_NS = (1, 7, 33, 5000)
+
+
+def packed_rows_cases(rng: np.random.Generator, device, cap: int = 4096):
+    """Yield ``(flat, wmeta, fused, rows)`` for the packed-rows gather: each
+    plan of :data:`PACKED_ROWS_PLANS` over one :func:`random_stream` (codes
+    past every table, 32-bit fields past 2**31), at each row count of
+    :data:`PACKED_ROWS_NS`; rows at word boundaries and the stream's last
+    row among them."""
+    flat, wmeta, _ = random_stream(rng, cap, device)
+    for plan in PACKED_ROWS_PLANS:
+        tables = [rng.standard_normal((k, f)).astype(np.float32)
+                  for _, k, f in plan]
+        fused = ops.fuse_tables(tables, device)
+        sub = wmeta[torch.tensor([col for col, _, _ in plan],
+                                 device=device)].contiguous()
+        for n in PACKED_ROWS_NS:
+            rows = rng.integers(0, cap, n)
+            ends = np.array([cap - 1, 0, 31, 32, 33, 15, 16])
+            rows[:min(n, ends.size)] = ends[:n]
+            yield flat, sub, fused, torch.from_numpy(
+                rows.astype(np.int32)).to(device)
 
 
 def scan_term_sets(rng: np.random.Generator) -> list[list[ScanTerm]]:
@@ -101,6 +141,21 @@ def onehot_wide_cases(rng: np.random.Generator, device, cs=ONEHOT_CS,
                     yield codes, w, g
 
 
+# (C, N, K, F) past the scan route's rows or work, so the gradient takes
+# its grouped route (onehot_wide.cu): about 200 rows per code over 196
+# tiles at F 64; F = 1 at 8,192 rows, 32 tiles; and 20,000 rows over three
+# codes at F 2
+ONEHOT_GROUPED_SHAPES = ((2, 200_000, 1_000, 64), (2, 8_192, 50, 1),
+                         (3, 20_000, 3, 2))
+
+
+def onehot_wide_grouped_cases(rng: np.random.Generator, device):
+    """:func:`onehot_wide_cases` at each of :data:`ONEHOT_GROUPED_SHAPES`."""
+    for c, n, k, f in ONEHOT_GROUPED_SHAPES:
+        yield from onehot_wide_cases(rng, device, cs=(c,), ns=(n,), ks=(k,),
+                                     fs=(f,))
+
+
 # int32 codes at both ends of the range, out of range of every table
 _INT32_ENDS = np.array([-(1 << 31), -1, (1 << 31) - 1], np.int64)
 
@@ -167,3 +222,29 @@ def adv_gather_cases(rng: np.random.Generator, device, n: int = 2_001,
                 yield t, codes
                 yield t, codes[:n - 1].view(40, (n - 1) // 40)
                 yield t, codes[:0]
+
+
+# the single-table gather's row shapes: every F with every n, at K = 1 and
+# the Table 6 column's K
+ADV_SHAPE_KS = (1, 999)
+ADV_SHAPE_FS = (1, 3, 16, 999)
+ADV_SHAPE_NS = (1, 3, 5, 4097)
+
+
+def adv_gather_shape_cases(rng: np.random.Generator, device, ks=ADV_SHAPE_KS,
+                           fs=ADV_SHAPE_FS, ns=ADV_SHAPE_NS):
+    """Yield ``(table, codes)`` for the single-table gather's vector and
+    row paths: every (K, F) of the grid, float32 and bfloat16, with n codes
+    for each n (n off every multiple of 4) and on a ``codes[1:]`` view (not
+    16-byte aligned) of n + 1 codes; codes past both edges of the table and
+    the int32 ends among them."""
+    for k in ks:
+        for f in fs:
+            table = torch.from_numpy(rng.standard_normal(
+                (k, f), dtype=np.float32)).to(device)
+            for n in ns:
+                codes = torch.from_numpy(_codes_with_ends(rng, k, n + 1)
+                                         ).to(device)
+                for t in (table, table.to(torch.bfloat16)):
+                    yield t, codes[:n]
+                    yield t, codes[1:]

@@ -11,7 +11,8 @@ tensors they launch the kernels on the current stream and raise if the
 launch fails — there is no fallback. ``OneHotWide`` takes the same route
 on every device, so the CPU runs the same backward wiring as the card.
 ``LAUNCHES`` counts kernel launches (only real launches, never
-plain-version calls).
+plain-version calls); a gradient counts once, also where its large-shape
+route takes four launches.
 """
 from __future__ import annotations
 
@@ -28,7 +29,9 @@ LAUNCHES = {"onehot_wide": 0, "onehot_wide_backward": 0}
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _SIGNATURES = {
     "onehot_wide": ([_P, _P, _P, _I, _I64, _I64, _I64, _I, _P], _I),
-    "onehot_wide_backward": ([_P, _P, _P, _I, _I64, _I64, _I64, _P], _I),
+    "onehot_wide_backward_scratch": ([_I, _I64, _I64, _I64], _I64),
+    "onehot_wide_backward": ([_P, _P, _P, _I, _I64, _I64, _I64, _P, _P],
+                             _I),
     "onehot_wide_error_string": ([_I], ctypes.c_char_p),
 }
 _INT32_MAX = (1 << 31) - 1
@@ -102,9 +105,12 @@ def _forward(codes: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def onehot_wide_backward(codes: torch.Tensor, grad_out: torch.Tensor,
                          k: int) -> torch.Tensor:
     """dW (C, K, F) float32 of ``sum(onehot_wide(codes, w) * grad_out)``
-    for (N, F) float32 ``grad_out``. Float atomics sum in no fixed order:
-    on the card the result is within ``ref.backward_sum_bound`` of the
-    plain version, not bit-equal to it."""
+    for (N, F) float32 ``grad_out``. Each entry is the float32 sum of its
+    rows' ``grad_out`` in ascending row order from +0.0, on the card as on
+    the CPU: the kernel equals the plain version run on the CPU (and
+    ``jax.grad`` of the JAX package's ``onehot_wide_ref``) bit for bit, in
+    every run. (The plain version on a CUDA tensor is not that order:
+    ``index_add_`` there adds with atomics.)"""
     device = codes.device
     _check_codes(codes, device)
     check("grad_out", grad_out, torch.float32, 2, device)
@@ -120,9 +126,12 @@ def onehot_wide_backward(codes: torch.Tensor, grad_out: torch.Tensor,
         return torch.zeros((c, k, f), dtype=torch.float32, device=device)
     dw = torch.empty((c, k, f), dtype=torch.float32, device=device)
     lib = _lib()
+    # the large-shape route's grouping of rows by code: ends, then order
+    scratch = torch.empty(lib.onehot_wide_backward_scratch(c, n, k, f),
+                          dtype=torch.int32, device=device)
     raise_on(lib.onehot_wide_backward(
         codes.data_ptr(), grad_out.data_ptr(), dw.data_ptr(), c, n, k, f,
-        stream_ptr(device)),
+        scratch.data_ptr() or None, stream_ptr(device)),
         lib.onehot_wide_error_string, "onehot_wide_backward")
     LAUNCHES["onehot_wide_backward"] += 1
     return dw

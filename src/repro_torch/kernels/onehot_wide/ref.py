@@ -55,11 +55,12 @@ def onehot_wide_backward_ref(codes: torch.Tensor, grad_out: torch.Tensor,
 
 def backward_sum_bound(codes: torch.Tensor, grad_out: torch.Tensor,
                        k: int) -> torch.Tensor:
-    """(C, K, F) bound on |kernel - plain| for the gradient. Each entry of
-    dW is a float32 sum of m terms; summed in any order it lies within
-    (m - 1) * 2**-24 * sum|terms| of the exact sum, so two orders (the
-    kernel's atomics, the plain version's ``index_add_``) differ by at most
-    twice that."""
+    """(C, K, F) bound on how far two summation orders of the gradient can
+    differ. Each entry of dW is a float32 sum of m terms; summed in any
+    order it lies within (m - 1) * 2**-24 * sum|terms| of the exact sum, so
+    two orders (say the plain version on the CPU, in ascending rows, and on
+    a card, where ``index_add_`` adds with atomics) differ by at most twice
+    that. The kernel keeps the CPU's order, so it needs no bound."""
     m = onehot_wide_backward_ref(
         codes, torch.ones_like(grad_out, dtype=torch.float32), k)
     abs_sum = onehot_wide_backward_ref(codes, grad_out.abs(), k)

@@ -15,6 +15,7 @@ import torch
 import jax.numpy as jnp
 
 from repro.kernels.adv_gather import ops as jops
+from repro_torch.kernels import edge_cases
 from repro_torch.kernels.adv_gather import ops, ref
 
 DBS = (1, 2, 4, 8, 16, 32)
@@ -154,3 +155,27 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         ops.adv_gather_packed_rows(words, wmeta, fused,
                                    rows.to("meta"))
+
+
+@pytest.mark.parametrize("plan", range(len(edge_cases.PACKED_ROWS_PLANS)))
+def test_packed_rows_edge_sets_match_pallas(plan):
+    """``edge_cases.packed_rows_cases`` (the card's edge sets for the tiled
+    kernel): out_dims 1, 31, 33, 58 and 200 at 1, 7, 33 and 5,000
+    rows, each plan's tables reading the random stream's columns."""
+    cases = list(edge_cases.packed_rows_cases(np.random.default_rng(plan),
+                                              "cpu"))
+    n_ns = len(edge_cases.PACKED_ROWS_NS)
+    cols = [col for col, _, _ in edge_cases.PACKED_ROWS_PLANS[plan]]
+    for flat, wmeta, fused, rows in cases[plan * n_ns:(plan + 1) * n_ns]:
+        offs, dbs = wmeta[:, 0].tolist(), wmeta[:, 1].tolist()
+        assert dbs == [edge_cases.DBS[c] for c in cols]
+        tables = [fused.tables[b:b + (lim + 1) * d].view(lim + 1, d).numpy()
+                  for lim, b, d, _ in fused.meta.tolist()]
+        jf = jops.fuse_tables(tables)
+        want = np.asarray(jops.adv_gather_packed_rows(
+            jnp.asarray(flat.numpy().view(np.uint32)), offs, dbs, jf.table,
+            jf.row_offsets, jf.card_limits, jnp.asarray(rows.numpy()),
+            jf.out_dim, interpret=True))
+        got = ops.adv_gather_packed_rows(flat, wmeta, fused, rows)
+        assert got.shape == want.shape == (rows.numel(), fused.out_dim)
+        assert np.array_equal(got.numpy(), want)

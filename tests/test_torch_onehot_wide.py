@@ -13,6 +13,11 @@ wrapper on CPU tensors (the plain versions of the CUDA kernels).
 - Backward: within rtol 1e-5 / atol 1e-6 of ``jax.grad`` (JAX cannot
   differentiate the Pallas call, so the oracle is autodiff through the
   jnp gather under the kernel's rule); out-of-range codes get no gradient.
+  Also bit for bit: each entry is the float32 sum of its rows in ascending
+  order from +0.0 in both packages (the order the CUDA kernel keeps), so
+  the port's gradient equals ``jax.grad`` of ``onehot_wide_ref`` exactly on
+  in-range codes, and the kernel rule's autodiff where codes fall outside
+  [0, K).
 """
 import jax
 import jax.numpy as jnp
@@ -134,6 +139,45 @@ def test_backward_matches_jax_grad(c, n, k, f):
     direct = ops.onehot_wide_backward(torch.from_numpy(codes),
                                       torch.from_numpy(g), k)
     np.testing.assert_allclose(direct.numpy(), want, rtol=1e-5, atol=1e-6)
+
+
+def _port_grads(codes, w, g):
+    """The port's gradient on the CPU, through ``onehot_wide_backward`` and
+    through ``OneHotWide``'s backward."""
+    direct = ops.onehot_wide_backward(torch.from_numpy(codes),
+                                      torch.from_numpy(g), w.shape[1])
+    wt = torch.from_numpy(w).requires_grad_(True)
+    (onehot_wide(torch.from_numpy(codes), wt) * torch.from_numpy(g)).sum() \
+        .backward()
+    return direct.numpy(), wt.grad.numpy()
+
+
+# the train shape, the JAX sweep's largest shape, and few codes over
+# thousands of rows: (C, N, K, F)
+BIT_SHAPES = [(2, 1024, 50, 1), (2, 256, 600, 128), (2, 4096, 4, 5),
+              (3, 20000, 3, 2)]
+
+
+@pytest.mark.parametrize("c,n,k,f", BIT_SHAPES)
+def test_backward_equals_jax_grad_bit_for_bit(c, n, k, f):
+    codes, w, g = _inputs(c, n, k, f, seed=c * k + n)
+    want = np.asarray(jax.grad(
+        lambda w: jnp.sum(j_ref(jnp.asarray(codes), w) * g))(jnp.asarray(w)))
+    for got in _port_grads(codes, w, g):
+        assert got.dtype == np.float32 and np.array_equal(got, want)
+
+
+def test_backward_edge_grid_equals_jax_grad_bit_for_bit():
+    """``test_edge_grid_small``'s grid (codes -1, K and both int32 ends
+    among them): the port's gradient equals the kernel rule's ``jax.grad``
+    bit for bit (``onehot_wide_ref`` itself wraps -1 and gives NaN past K;
+    see ``test_reference_quirks_outside_range``)."""
+    for codes, w, g in edge_cases.onehot_wide_cases(
+            np.random.default_rng(0), "cpu", ks=(1, 4, 600)):
+        cn, wn, gn = codes.numpy(), w.numpy(), g.numpy()
+        want = _jax_grad_kernel_rule(cn, wn, gn)
+        for got in _port_grads(cn, wn, gn):
+            assert got.shape == want.shape and np.array_equal(got, want)
 
 
 def test_backward_out_of_range_codes_get_no_gradient():

@@ -31,6 +31,7 @@ from repro.kernels.hist.ref import hist_ref as j_hist_ref
 from repro_torch.columnar import Column, Dictionary
 from repro_torch.columnar import stats
 from repro_torch.core import AugmentedDictionary
+from repro_torch.kernels import edge_cases
 from repro_torch.kernels.adv_gather import adv_gather, ops as adv_ops
 from repro_torch.kernels.bitunpack import bitunpack, repack_for_device
 from repro_torch.kernels.bitunpack import ops as unpack_ops
@@ -178,6 +179,24 @@ def test_adv_gather_sweep_matches_pallas(n, k, f, dtype):
     got = adv_gather(tt, torch.from_numpy(codes))
     assert got.dtype == tt.dtype and got.shape == (n, f)
     assert np.array_equal(got.float().numpy(), want)
+
+
+@pytest.mark.parametrize("k", edge_cases.ADV_SHAPE_KS)
+@pytest.mark.parametrize("f", edge_cases.ADV_SHAPE_FS)
+def test_adv_gather_row_shapes_match_pallas(k, f):
+    """``edge_cases.adv_gather_shape_cases`` (the card's edge sets for the
+    vector and row paths): n in {1, 3, 5, 4097} and ``codes[1:]`` views,
+    float32 and bfloat16, codes past both edges and the int32 ends."""
+    for table, codes in edge_cases.adv_gather_shape_cases(
+            np.random.default_rng(k + f), "cpu", ks=(k,), fs=(f,)):
+        jt = jnp.asarray(table.float().numpy())
+        if table.dtype == torch.bfloat16:
+            jt = jt.astype(jnp.bfloat16)
+        want = np.asarray(j_adv_gather(jt, jnp.asarray(codes.numpy())),
+                          np.float32)
+        got = adv_gather(table, codes)
+        assert got.dtype == table.dtype and got.shape == want.shape
+        assert np.array_equal(got.float().numpy(), want)
 
 
 @pytest.mark.parametrize("case", ["2d", "k_2**17", "out_of_range",
