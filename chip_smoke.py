@@ -23,14 +23,17 @@ checkout's sources (into build/torch_ext/) and needs one card. Phases:
    edge-case set (widths 1-32, codes past every table, rows past the
    stream, n off every multiple of 32, empty and full selections, LUT
    clamps, k = 1, codes >= k, k past the shared-memory counters; for the
-   packed-rows gather out_dims 1, 31, 33, 58 and 200 at 1, 7, 33 and
-   5,000 rows; for the wide layer C in {0, 1, 8}, N in {0, 1, 33, 1024}, K
-   in {1, 4, 600, 65537}, F in {1, 129}, codes -1, K, 2**31 - 1, -2**31,
-   bf16, and (2, 200,000, 1,000, 64), (2, 8,192, 50, 1) and (3, 20,000,
-   3, 2), where the gradient takes its grouped route; for the Table 6
-   kernels ``edge_cases``' bit-unpack, counts and single-table gather
-   sets, the gather also at F in {1, 3, 16, 999} with n in {1, 3, 5,
-   4097} and on views not 16-byte aligned). Bit for bit;
+   scan column word offsets off every multiple of 4 and n in {1, 15, 16,
+   17, 127, 129, 4097, 8193}; for the packed-rows gather out_dims 1, 31,
+   33, 58 and 200 at 1, 7, 33 and 5,000 rows; for the int32 gather out_dims
+   1, 4, 17, 31, 33, 58 and 200 at 1, 7, 33, 1,024 and 5,000 rows, C = 1
+   to 9 and a K = 1 table; for the wide layer C in {0, 1, 8}, N in {0, 1, 33,
+   1024}, K in {1, 4, 600, 65537}, F in {1, 129}, codes -1, K, 2**31 - 1,
+   -2**31, bf16, and (2, 200,000, 1,000, 64), (2, 8,192, 50, 1) and
+   (3, 20,000, 3, 2), where the gradient takes its grouped route; for the
+   Table 6 kernels ``edge_cases``' bit-unpack, counts and single-table
+   gather sets, the gather also at F in {1, 3, 16, 999} with n in {1, 3,
+   5, 4097} and on views not 16-byte aligned). Bit for bit;
    the wide gradient against its plain version run on CPU copies of the
    inputs (``index_add_`` on the card adds with atomics, in no fixed
    order), and bit-equal across two launches. Median
@@ -301,7 +304,9 @@ def gather_edge_cases(ec, ops, ref, dev, rng) -> dict[str, float]:
     """Widths 1-32 mixed across columns, random words (codes past every
     table, 32-bit fields past 2**31), rows at word boundaries and past the
     stream, negative and oversized int32 codes; for the packed rows also
-    ``ec.packed_rows_cases`` (out_dims 1 to 200, 1 to 5,000 rows)."""
+    ``ec.packed_rows_cases`` (out_dims 1 to 200, 1 to 5,000 rows), for the
+    int32 gather ``ec.multi_cases`` (out_dims 1 to 200, C = 1 to 9, a K = 1
+    table, 1 to 5,000 rows)."""
     cards, dims, cap = (2, 3, 11, 200, 3000, 1000), (1, 3, 2, 5, 2, 1), 4096
     tables = [rng.standard_normal((k, f)).astype(np.float32)
               for k, f in zip(cards, dims)]
@@ -317,6 +322,13 @@ def gather_edge_cases(ec, ops, ref, dev, rng) -> dict[str, float]:
             ops.adv_gather_packed_rows(flat_c, wmeta_c, fused_c, rows_c),
             ref.adv_gather_packed_rows_ref(flat_c, wmeta_c, fused_c,
                                            rows_c)))
+    multi_err = 0.0
+    for fused_c, codes_c in ec.multi_cases(rng, dev):
+        multi_err = max(multi_err, check_equal(
+            f"gather_fused_parts edge set out_dim {fused_c.out_dim} "
+            f"codes {tuple(codes_c.shape)}",
+            ops.gather_fused_parts(fused_c, codes_c),
+            ref.gather_fused_parts_ref(fused_c, codes_c)))
     rows = torch.from_numpy(rows.astype(np.int32)).to(dev)
     starts = torch.tensor([0, 32, 1024, cap - 512], dtype=torch.int32,
                           device=dev)
@@ -332,10 +344,10 @@ def gather_edge_cases(ec, ops, ref, dev, rng) -> dict[str, float]:
             "adv_gather_packed edge cases",
             ops.adv_gather_packed(flat, wmeta, fused, starts, 512),
             ref.adv_gather_packed_ref(flat, wmeta, fused, starts, 512)),
-        "gather_fused_parts": check_equal(
+        "gather_fused_parts": max(multi_err, check_equal(
             "gather_fused_parts edge cases",
             ops.gather_fused_parts(fused, codes),
-            ref.gather_fused_parts_ref(fused, codes)),
+            ref.gather_fused_parts_ref(fused, codes))),
     }
 
 
@@ -344,7 +356,10 @@ def pushdown_edge_cases(ec, scan_ops, scan_ref, hist_ops, hist_ref, dev,
     """The scan: ``ec.scan_term_sets`` (both kinds at widths 1-32 over
     random words, two terms on one column, LUT clamps, empty and full
     selections) under AND and OR, n off every multiple of 4 and 32 against
-    a longer stream (the count covers [0, n) only). The masked counts:
+    a longer stream (the count covers [0, n) only); ``ec.scan_layout_cases``
+    (word offsets off every multiple of 4, bounds below 0, past 2**db and
+    empty after the clamp, n around a 16-row group and one row past a
+    block's step) under AND and OR. The masked counts:
     ``ec.masked_counts_cases`` (every width, k = 1, codes >= k, all-false /
     all-true / random masks, k at the shared-memory limit and past it)."""
     cap = 4096
@@ -362,6 +377,20 @@ def pushdown_edge_cases(ec, scan_ops, scan_ref, hist_ops, hist_ref, dev,
                 err["predicate_scan"] = max(err["predicate_scan"],
                                             check_equal(name, mask, want))
                 if not int(count) == int(want_count) == int(want.sum()):
+                    fail(f"{name}: count {int(count)} vs {int(want_count)}")
+    for i, (flat_l, wmeta_l, terms) in enumerate(ec.scan_layout_cases(rng,
+                                                                      dev)):
+        packed = scan_ops.pack_terms(terms, ec.DBS, dev)
+        for combine in ("and", "or"):
+            for n in ec.SCAN_LAYOUT_NS:
+                mask, count = scan_ops.predicate_scan(flat_l, wmeta_l, packed,
+                                                      n, combine)
+                want, want_count = scan_ref.predicate_scan_ref(
+                    flat_l, wmeta_l, packed, n, combine)
+                name = f"predicate_scan layout case {i} {combine} n={n}"
+                err["predicate_scan"] = max(err["predicate_scan"],
+                                            check_equal(name, mask, want))
+                if int(count) != int(want_count):
                     fail(f"{name}: count {int(count)} vs {int(want_count)}")
     cases, masks = ec.masked_counts_cases(rng, cap, dev)
     for words, off, db, k in cases:

@@ -28,27 +28,47 @@
 // words), and write out_dim floats. The tables are K-row sized (kilobytes
 // to a few MB) and stay in L2 across launches, so the output store
 // dominates: 232 B per row at the serving width of 58 features against
-// 4 + 16 B read. At the serving batch sizes (2,048 rows) a launch moves
-// about half a megabyte, so latency, not bandwidth, sets the time: the
-// chain of dependent loads from a row index to its store.
+// 4 + 16 B read. At the serving and train batch sizes (512 to 2,048 rows)
+// a launch moves a few hundred kilobytes at most, so latency, not
+// bandwidth, sets the time: the chain of dependent loads from a row index
+// or code to its store, and the launch itself (a one-element fill takes
+// about 1 us of device time).
 //
-// packed_range_kernel and multi_kernel: a warp owns one output row at a
-// time and its lanes stride over the row's out_dim columns, so stores are
-// coalesced and no index division is needed; each lane runs the whole
-// chain (metadata, word, table) for its element.
+// packed_range_kernel: a warp owns one output row at a time and its lanes
+// stride over the row's out_dim columns, so stores are coalesced and no
+// index division is needed; each lane runs the whole chain (metadata, word,
+// table) for its element.
 //
-// packed_rows_kernel shortens that chain. A block stages col_of and the
-// table metadata in shared memory once, and takes tiles of kTileRows rows:
+// The other two give every output element its own thread, so no lane idles
+// at out_dim 4 or 58 and stores coalesce across row boundaries, and cut the
+// chain of dependent loads. Which element a thread takes depends on the
+// thread alone, so it loads its column's addressing when it starts: jmeta
+// row j (table c, row 0's entry of column j, F_c, K_c - 1), one 16-byte
+// load.
+//
+// multi_kernel (int32 codes, (C, n)): one thread per element, no shared
+// memory and no barrier. Beside jmeta row j the thread loads its row's codes
+// of every column (up to kRowCodes; the threads of one row load the same
+// words), keeps column c's and clamps it: the chain is (jmeta, codes) ->
+// table -> store, one global round trip shorter than the warp-per-row
+// layout's col_of -> (metadata, code) -> table -> store, which left 28 of
+// 32 lanes idle at the train path's out_dim of 4. Tiling it like
+// packed_rows_kernel (codes staged in shared memory, then a barrier) read
+// 0.1-0.6 us slower at the train shape than the warp-per-row kernel: with
+// L2-resident codes a barrier and shared loads cost more than the round
+// trip they save.
+//
+// packed_rows_kernel is tiled, because its codes cost a packed-word load
+// each (the 109 MB stream is twice L2): a block takes tiles of 8 rows, and
 // first one thread per (row, column) loads the row index and its packed
-// word (metadata through __ldg, in parallel with the index), extracts and
-// clamps the code into shared memory, C word loads per row instead of one
-// per output element; after a barrier, one thread per output element walks
-// the tile's (row, j) elements flattened row-major, so stores coalesce
-// across row boundaries and no lane idles at out_dim 58, and copies its
-// table entry. The chain is rows[i] -> word -> barrier -> table -> store.
-// 8-row tiles put the serving path's 2,048-row launch on 256 blocks, one
-// wave of the 132 SMs (two blocks an SM), each thread with about two
-// elements.
+// word and puts the clamped code in shared memory, C word loads per row
+// instead of one per output element. After a barrier, one thread per output
+// element walks the tile row-major (copy_tile) and copies its table entry.
+// The chain is rows[i] -> word -> barrier -> table -> store; jmeta is
+// loaded at the start and held in registers past the barrier (hold), which
+// read 0.19 us faster than letting the compiler sink it to its use. 8-row
+// tiles put the serving path's 2,048-row launch on 256 blocks, one wave of
+// the 132 SMs (two blocks an SM), each thread with about two elements.
 //
 // The single-table gather is adv_gather(table, codes): codes of any shape
 // (n int32 in all), each clamped to [0, K - 1], and one (K, F) table of
@@ -79,11 +99,12 @@
 
 namespace {
 
-constexpr int kThreads = 256;                 // 8 warps, one row each
+constexpr int kThreads = 256;                 // 8 warps
 constexpr int kWarpsPerBlock = kThreads / 32;
 constexpr long long kMaxBlocks = 132LL * 16;  // grid-stride past this
 constexpr int kTileRows = 8;                  // rows per packed-rows tile
-constexpr int kUnroll = 4;                    // its elements per thread pass
+constexpr int kUnroll = 4;                    // tile elements a thread pass
+constexpr int kRowCodes = 8;                  // multi_kernel's codes a row
 constexpr size_t kDefaultShared = 48 * 1024;  // above: opt in per kernel
 constexpr size_t kSharedLimit = 232448;       // 227 KB: a block's maximum
 constexpr long long kSingleMaxBlocks = 0x7fffffffLL;  // one step a thread
@@ -124,64 +145,113 @@ __device__ __forceinline__ void packed_row(
   }
 }
 
-// Dynamic shared memory of packed_rows_kernel: col_of (out_dim int32,
-// padded to 16 B), the table metadata (C x int4) and a tile's codes
-// (kTileRows x C int32).
-size_t rows_shared_bytes(int out_dim, int n_cols) {
-  return (size_t)((out_dim + 3) & ~3) * 4 + (size_t)n_cols * 16 +
-         (size_t)kTileRows * n_cols * 4;
+// Dynamic shared memory of packed_rows_kernel: a tile's codes (kTileRows x
+// C int32).
+size_t rows_shared_bytes(int n_cols) {
+  return (size_t)kTileRows * n_cols * 4;
+}
+
+__device__ __forceinline__ int clamp_code(int code, int limit) {
+  return code < 0 ? 0 : (code > limit ? limit : code);
+}
+
+// A thread's output elements in the first pass over a tile, row-major from
+// the tile's first element: e = threadIdx.x + u * kThreads is row e /
+// out_dim, column j = e % out_dim, and jmeta row j (table c, row 0's entry
+// of column j, F_c). They depend on the thread alone, so they are found
+// and loaded when the kernel starts, with the first codes, and no division
+// or metadata load waits for a tile's codes.
+struct TileElems {
+  int row[kUnroll];
+  int4 jm[kUnroll];
+};
+
+__device__ __forceinline__ TileElems tile_elems(const int4* __restrict__ jmeta,
+                                                int out_dim, int elems) {
+  TileElems te;
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const int e = threadIdx.x + u * kThreads;
+    te.row[u] = 0;
+    te.jm[u] = make_int4(0, 0, 0, 0);
+    if (e < elems) {
+      te.row[u] = e / out_dim;
+      te.jm[u] = __ldg(jmeta + (e - te.row[u] * out_dim));
+    }
+  }
+  return te;
+}
+
+// Keeps te's loads before the barrier that follows: the compiler may
+// otherwise sink them to their use, a global round trip after it.
+__device__ __forceinline__ void hold(const TileElems& te) {
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u)
+    asm volatile("" ::"r"(te.row[u]), "r"(te.jm[u].x), "r"(te.jm[u].y),
+                 "r"(te.jm[u].z));
+}
+
+__device__ __forceinline__ float tile_entry(const float* __restrict__ tables,
+                                            const int* s_code, int row,
+                                            int n_cols, int4 jm) {
+  return __ldg(tables + (long long)jm.y +
+               (long long)s_code[row * n_cols + jm.x] * jm.z);
+}
+
+// One thread per output element of a tile of `tile` rows, row-major from
+// out_tile, each copying its table entry by its clamped code in s_code:
+// the first kUnroll x kThreads elements by `te`, their table loads all
+// issued before their stores, and any past them (a tile wider than that)
+// one by one.
+__device__ __forceinline__ void copy_tile(const TileElems& te,
+                                          const int4* __restrict__ jmeta,
+                                          const int* s_code,
+                                          const float* __restrict__ tables,
+                                          float* __restrict__ out_tile,
+                                          int tile, int out_dim, int n_cols) {
+  const int elems = tile * out_dim;
+  float v[kUnroll];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u)
+    if ((int)threadIdx.x + u * kThreads < elems)
+      v[u] = tile_entry(tables, s_code, te.row[u], n_cols, te.jm[u]);
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u)
+    if ((int)threadIdx.x + u * kThreads < elems)
+      out_tile[threadIdx.x + u * kThreads] = v[u];
+  for (int e = threadIdx.x + kUnroll * kThreads; e < elems; e += kThreads) {
+    const int r = e / out_dim;
+    out_tile[e] = tile_entry(tables, s_code, r, n_cols,
+                             __ldg(jmeta + (e - r * out_dim)));
+  }
 }
 
 __global__ void __launch_bounds__(kThreads) packed_rows_kernel(
     const int* __restrict__ rows, long long n,
     const uint32_t* __restrict__ words, long long n_words,
     const int* __restrict__ wmeta, const int* __restrict__ tmeta,
-    const int* __restrict__ col_of, const float* __restrict__ tables,
+    const int4* __restrict__ jmeta, const float* __restrict__ tables,
     float* __restrict__ out, int out_dim, int n_cols) {
   extern __shared__ __align__(16) unsigned char dyn_shared[];
-  int* s_col = reinterpret_cast<int*>(dyn_shared);
-  int4* s_meta = reinterpret_cast<int4*>(s_col + ((out_dim + 3) & ~3));
-  int* s_code = reinterpret_cast<int*>(s_meta + n_cols);
-  for (int j = threadIdx.x; j < out_dim; j += kThreads)
-    s_col[j] = __ldg(col_of + j);
-  for (int c = threadIdx.x; c < n_cols; c += kThreads)
-    s_meta[c] = make_int4(__ldg(tmeta + 4 * c), __ldg(tmeta + 4 * c + 1),
-                          __ldg(tmeta + 4 * c + 2), __ldg(tmeta + 4 * c + 3));
+  int* s_code = reinterpret_cast<int*>(dyn_shared);  // [row * n_cols + c]
+  const long long tile_max = n < kTileRows ? n : kTileRows;
+  const TileElems te = tile_elems(jmeta, out_dim, (int)tile_max * out_dim);
   for (long long r0 = (long long)blockIdx.x * kTileRows; r0 < n;
        r0 += (long long)gridDim.x * kTileRows) {
     const int tile = (int)(n - r0 < kTileRows ? n - r0 : kTileRows);
     // one thread per (row, column): the row's clamped code of that column
     for (int s = threadIdx.x; s < tile * n_cols; s += kThreads) {
       const int r = s / n_cols, c = s - r * n_cols;
-      const int limit = __ldg(tmeta + 4 * c);
-      const int code = packed_code(words, n_words, __ldg(wmeta + 2 * c),
-                                   __ldg(wmeta + 2 * c + 1),
-                                   __ldg(rows + r0 + r));
-      s_code[s] = code < 0 ? 0 : (code > limit ? limit : code);
+      s_code[s] = clamp_code(
+          packed_code(words, n_words, __ldg(wmeta + 2 * c),
+                      __ldg(wmeta + 2 * c + 1), __ldg(rows + r0 + r)),
+          __ldg(tmeta + 4 * c));
     }
+    hold(te);
     __syncthreads();
-    // one thread per output element of the tile, row-major; a thread's
-    // table loads (up to kUnroll) are all issued before its stores
-    float* __restrict__ out_tile = out + r0 * out_dim;
-    const int elems = tile * out_dim;
-    for (int e0 = threadIdx.x; e0 < elems; e0 += kUnroll * kThreads) {
-      float v[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int e = e0 + u * kThreads;
-        if (e < elems) {
-          const int r = e / out_dim, j = e - r * out_dim;
-          const int c = s_col[j];
-          const int4 m = s_meta[c];
-          v[u] = __ldg(tables + (long long)m.y +
-                       (long long)s_code[r * n_cols + c] * m.z + (j - m.w));
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-        if (e0 + u * kThreads < elems) out_tile[e0 + u * kThreads] = v[u];
-    }
-    __syncthreads();                     // s_code is free for the next tile
+    copy_tile(te, jmeta, s_code, tables, out + r0 * out_dim, tile, out_dim,
+              n_cols);
+    __syncthreads();                     // the codes are free for the next tile
   }
 }
 
@@ -207,21 +277,38 @@ __global__ void __launch_bounds__(kThreads) packed_range_kernel(
 }
 
 // codes (C, n) int32, raw per-column codes: the clamp and the table offset
-// happen here, fused into the lookup.
+// happen here, fused into the lookup. One thread per output element, row r
+// = e / out_dim and column j = e % out_dim: it loads jmeta row j and, with
+// it, its row's codes of every column (up to kRowCodes; threads of one row
+// load the same words), takes the code of table jmeta.x, clamps it and
+// copies the table entry. No shared memory, no barrier: the chain is
+// (jmeta, codes) -> table -> store.
 __global__ void __launch_bounds__(kThreads) multi_kernel(
     const int* __restrict__ codes, long long n,
-    const int* __restrict__ tmeta, const int* __restrict__ col_of,
-    const float* __restrict__ tables, float* __restrict__ out, int out_dim) {
-  const int lane = threadIdx.x & 31;
-  const long long stride = (long long)gridDim.x * kWarpsPerBlock;
-  for (long long i = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-       i < n; i += stride) {
-    float* out_row = out + i * out_dim;
-    for (int j = lane; j < out_dim; j += 32) {
-      const int c = __ldg(col_of + j);
-      out_row[j] = lookup(tables, table_meta(tmeta, c),
-                          __ldg(codes + (long long)c * n + i), j);
+    const int4* __restrict__ jmeta, const float* __restrict__ tables,
+    float* __restrict__ out, int out_dim, int n_cols) {
+  const long long total = n * out_dim;
+  const bool narrow = total <= 0xffffffffLL;   // 32-bit division suffices
+  for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
+       e < total; e += (long long)gridDim.x * kThreads) {
+    const long long r =
+        narrow ? (long long)((uint32_t)e / (uint32_t)out_dim) : e / out_dim;
+    const int4 jm = __ldg(jmeta + (int)(e - r * out_dim));
+    int code;
+    if (n_cols <= kRowCodes) {
+      int v[kRowCodes];
+#pragma unroll
+      for (int c = 0; c < kRowCodes; ++c)
+        if (c < n_cols) v[c] = __ldg(codes + c * n + r);
+      code = v[0];
+#pragma unroll
+      for (int c = 1; c < kRowCodes; ++c)
+        if (c == jm.x) code = v[c];
+    } else {
+      code = __ldg(codes + (long long)jm.x * n + r);
     }
+    out[e] = __ldg(tables + (long long)jm.y +
+                   (long long)clamp_code(code, jm.w) * jm.z);
   }
 }
 
@@ -249,10 +336,6 @@ struct Quad<uint16_t> {
                       (uint32_t)c | ((uint32_t)d << 16));
   }
 };
-
-__device__ __forceinline__ int clamp_code(int code, int limit) {
-  return code < 0 ? 0 : (code > limit ? limit : code);
-}
 
 // F = 1: thread t copies rows 4t .. 4t + 3.
 template <typename T>
@@ -346,15 +429,14 @@ unsigned int blocks_for(long long rows) {
 // the launch's cudaError_t (0 = launched).
 extern "C" {
 
-// A plan whose col_of, metadata and tile codes pass the 227 KB of shared
-// memory a block may take (out_dim past about 58,000) is refused with
-// cudaErrorInvalidValue.
+// A plan whose tile codes pass the 227 KB of shared memory a block may take
+// (more than 7,264 columns) is refused with cudaErrorInvalidValue.
 int adv_gather_packed_rows(const int* rows, long long n, const int* words,
                            long long n_words, const int* wmeta,
-                           const int* tmeta, const int* col_of,
+                           const int* tmeta, const int* jmeta,
                            const float* tables, float* out, int out_dim,
                            int n_cols, void* stream) {
-  const size_t shared = rows_shared_bytes(out_dim, n_cols);
+  const size_t shared = rows_shared_bytes(n_cols);
   if (shared > kSharedLimit) return (int)cudaErrorInvalidValue;
   if (shared > kDefaultShared) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -367,7 +449,8 @@ int adv_gather_packed_rows(const int* rows, long long n, const int* words,
   packed_rows_kernel<<<(unsigned int)blocks, kThreads, shared,
                        (cudaStream_t)stream>>>(
       rows, n, reinterpret_cast<const uint32_t*>(words), n_words, wmeta,
-      tmeta, col_of, tables, out, out_dim, n_cols);
+      tmeta, reinterpret_cast<const int4*>(jmeta), tables, out, out_dim,
+      n_cols);
   return (int)cudaGetLastError();
 }
 
@@ -382,11 +465,14 @@ int adv_gather_packed(const int* starts, int n_ranges, int batch,
   return (int)cudaGetLastError();
 }
 
-int gather_fused_parts(const int* codes, long long n, const int* tmeta,
-                       const int* col_of, const float* tables, float* out,
-                       int out_dim, void* stream) {
-  multi_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      codes, n, tmeta, col_of, tables, out, out_dim);
+int gather_fused_parts(const int* codes, long long n, const int* jmeta,
+                       const float* tables, float* out, int out_dim,
+                       int n_cols, void* stream) {
+  long long blocks = (n * out_dim + kThreads - 1) / kThreads;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  multi_kernel<<<(unsigned int)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      codes, n, reinterpret_cast<const int4*>(jmeta), tables, out, out_dim,
+      n_cols);
   return (int)cudaGetLastError();
 }
 

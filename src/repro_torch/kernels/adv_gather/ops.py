@@ -44,7 +44,7 @@ _SIGNATURES = {
                                 _I, _P], _I),
     "adv_gather_packed": ([_P, _I, _I, _P, _I64, _P, _P, _P, _P, _P, _I, _P],
                           _I),
-    "gather_fused_parts": ([_P, _I64, _P, _P, _P, _P, _I, _P], _I),
+    "gather_fused_parts": ([_P, _I64, _P, _P, _P, _I, _I, _P], _I),
     "adv_gather": ([_P, _I64, _P, _I, _I64, _I, _P, _P], _I),
     "adv_gather_error_string": ([_I], ctypes.c_char_p),
 }
@@ -64,6 +64,9 @@ class FusedTables:
     tables: torch.Tensor      # (sum K_c*F_c,) float32, table c row-major
     meta: torch.Tensor        # (C, 4) int32: K_c - 1, base, F_c, col offset
     col_of: torch.Tensor      # (out_dim,) int32: source table of each column
+    jmeta: torch.Tensor       # (out_dim, 4) int32 per output column j of
+    #   table c: c, base_c + j - col_off_c (row 0's entry), F_c, K_c - 1
+    #   (one 16-byte load gives a kernel all it needs to address j)
     dims: tuple[int, ...]     # per-table feature width F_c
     cards: tuple[int, ...]    # per-table cardinality K_c
 
@@ -99,9 +102,16 @@ def fuse_tables(tables, device) -> FusedTables:
     flat = (np.concatenate([t.reshape(-1) for t in tables]) if tables
             else np.zeros(0, np.float32))
     col_of = np.repeat(np.arange(len(tables), dtype=np.int32), dims)
+    jmeta = np.zeros((col_of.size, 4), np.int32)
+    jmeta[:, 0] = col_of
+    jmeta[:, 1] = (meta[col_of, 1] + np.arange(col_of.size, dtype=np.int32)
+                   - meta[col_of, 3])
+    jmeta[:, 2] = meta[col_of, 2]
+    jmeta[:, 3] = meta[col_of, 0]
     return FusedTables(tables=torch.from_numpy(flat).to(device),
                        meta=torch.from_numpy(meta).to(device),
                        col_of=torch.from_numpy(col_of).to(device),
+                       jmeta=torch.from_numpy(jmeta).to(device),
                        dims=dims, cards=cards)
 
 
@@ -126,8 +136,10 @@ def _check_fused(fused: FusedTables, device: torch.device) -> None:
     check("fused.tables", fused.tables, torch.float32, 1, device)
     check("fused.meta", fused.meta, torch.int32, 2, device)
     check("fused.col_of", fused.col_of, torch.int32, 1, device)
+    check("fused.jmeta", fused.jmeta, torch.int32, 2, device)
     if fused.meta.shape != (fused.n_tables, 4) or \
-            fused.col_of.shape[0] != fused.out_dim:
+            fused.col_of.shape[0] != fused.out_dim or \
+            fused.jmeta.shape != (fused.out_dim, 4):
         raise ValueError("fused table metadata does not match its dims")
 
 
@@ -173,7 +185,7 @@ def adv_gather_packed_rows(flat_words: torch.Tensor, wmeta: torch.Tensor,
     lib = _lib()
     raise_on(lib.adv_gather_packed_rows(
         rows.data_ptr(), n, flat_words.data_ptr(), flat_words.numel(),
-        wmeta.data_ptr(), fused.meta.data_ptr(), fused.col_of.data_ptr(),
+        wmeta.data_ptr(), fused.meta.data_ptr(), fused.jmeta.data_ptr(),
         fused.tables.data_ptr(), out.data_ptr(), fused.out_dim,
         fused.n_tables, stream_ptr(device)),
         lib.adv_gather_error_string, "adv_gather_packed_rows")
@@ -245,9 +257,8 @@ def gather_fused_parts(fused: FusedTables,
         return out
     lib = _lib()
     raise_on(lib.gather_fused_parts(
-        codes.data_ptr(), n, fused.meta.data_ptr(), fused.col_of.data_ptr(),
-        fused.tables.data_ptr(), out.data_ptr(), fused.out_dim,
-        stream_ptr(device)),
+        codes.data_ptr(), n, fused.jmeta.data_ptr(), fused.tables.data_ptr(),
+        out.data_ptr(), fused.out_dim, fused.n_tables, stream_ptr(device)),
         lib.adv_gather_error_string, "gather_fused_parts")
     LAUNCHES["gather_fused_parts"] += 1
     return out

@@ -2,6 +2,7 @@
 checkout's, on one card:
 
     python3 src/repro_torch/kernels/compare_versions.py --base DIR [--seed S]
+                                                        [--only NAME ...]
 
 ``DIR`` holds the earlier checkout (for instance its commit's ``git
 archive`` unpacked under ``build/``). Each version runs in a child process
@@ -15,12 +16,20 @@ times it with ``chip_smoke.py``'s timers (this checkout's): back to back
 after a 128 MiB L2 flush (the median of 50 single launches); then its
 device time per call from ``torch.profiler`` (the kernels' and memsets'
 durations over 100 calls, without the gaps between launches), beside that
-of a one-element fill, the least a launch takes. The shapes:
+of a one-element fill, the least a launch takes. ``--only`` keeps the
+cases whose names start with one of its words. The shapes:
 
-- the packed-rows gather: 2,048 rows (the serving path's launch) against a
-  2**25-row stream at device widths 8/8/8/2 (27,262,976 random words) and
-  the serving plan's tables, 72 x 2, 50 x 50, 230 x 2 and 4 x 4 (out_dim
-  58);
+- the predicate scan over a 2**25-row random stream at device widths
+  8/8/8/2 (27,262,976 words) at the pushdown path's two term shapes: P1, a
+  range on an 8-bit column AND a 72-entry LUT on another (``predicate_scan
+  P1``), and P2, a 4-entry LUT on the 2-bit column OR a 230-entry LUT on an
+  8-bit one (``predicate_scan P2``);
+- the packed-rows gather: 2,048 rows (the serving path's launch) against
+  the same stream and the serving plan's tables, 72 x 2, 50 x 50, 230 x 2
+  and 4 x 4 (out_dim 58);
+- the int32 gather: (4, 512) codes against the same tables (the int32
+  service's launch) and (2, 1,024) codes against 72 x 2 and 230 x 2
+  (out_dim 4, the train step's);
 - the single-table gather: ``zscore``'s (999, 1) float32 table by 2**25
   codes;
 - the wide gradient at :data:`GRADIENT_SHAPES`: the train shape (codes of
@@ -28,10 +37,11 @@ of a one-element fill, the least a launch takes. The shapes:
   the train shape's columns at more rows, and the edge sets' grouped
   shapes.
 
-Both gathers must equal their plain versions, and the two versions each
-other, bit for bit; the gradient of this checkout must equal the CPU's bit
-for bit, the earlier one (float atomics) be within ``backward_sum_bound``
-of it. One line per kernel and turn, then the card's name and power limit.
+The scan, mask and count, and the gathers must equal their plain versions,
+and the two versions each other, bit for bit; the gradient of this
+checkout must equal the CPU's bit for bit, the earlier one (float atomics)
+be within ``backward_sum_bound`` of it. One line per kernel and turn, then
+the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -83,6 +93,8 @@ def _cases(rng, dev):
     from repro_torch.kernels.adv_gather import ref as adv_ref
     from repro_torch.kernels.onehot_wide import ops as wide_ops
     from repro_torch.kernels.onehot_wide import ref as wide_ref
+    from repro_torch.kernels.predicate_scan import ops as scan_ops
+    from repro_torch.kernels.predicate_scan import ref as scan_ref
     cases = {}
     n_rows, dbs = 1 << 25, (8, 8, 8, 2)
     words = [rng.integers(0, 1 << 32, n_rows * db // 32, dtype=np.uint64)
@@ -100,6 +112,36 @@ def _cases(rng, dev):
         lambda: adv_ref.adv_gather_packed_rows_ref(
             flat.cpu(), wmeta.cpu(), adv_ops.fuse_tables(tables, "cpu"),
             rows.cpu()), "equal")
+    flat_cpu, wmeta_cpu = flat.cpu(), wmeta.cpu()
+    dbs_cpu = wmeta_cpu[:, 1].tolist()
+
+    def lut(size, on):
+        return (np.arange(size) < on)[rng.permutation(size)].astype(np.int32)
+    p1 = [scan_ops.ScanTerm(col=1, kind=0, lo=19, hi=19),
+          scan_ops.ScanTerm(col=0, kind=1, lut=lut(72, 16))]
+    p2 = [scan_ops.ScanTerm(col=3, kind=1, lut=np.array([0, 1, 0, 1],
+                                                         np.int32)),
+          scan_ops.ScanTerm(col=2, kind=1, lut=lut(230, 10))]
+    for name, terms, combine in (("P1", p1, "and"), ("P2", p2, "or")):
+        packed = scan_ops.pack_terms(terms, dbs_cpu, dev)
+        packed_cpu = scan_ops.pack_terms(terms, dbs_cpu, "cpu")
+        cases[f"predicate_scan {name}"] = (
+            lambda packed=packed, combine=combine: scan_ops.predicate_scan(
+                flat, wmeta, packed, n_rows, combine),
+            lambda packed=packed_cpu, combine=combine:
+                scan_ref.predicate_scan_ref(flat_cpu, wmeta_cpu, packed,
+                                            n_rows, combine), "equal")
+    for shape, plan in (((4, 512), tables),
+                        ((2, 1024), [tables[0], tables[2]])):
+        fused_m = adv_ops.fuse_tables(plan, dev)
+        codes_m = torch.from_numpy(np.stack([
+            rng.integers(0, t.shape[0], shape[1]) for t in plan])
+            .astype(np.int32)).to(dev)
+        cases[f"gather_fused_parts {shape} out_dim {fused_m.out_dim}"] = (
+            lambda fused_m=fused_m, codes_m=codes_m:
+                adv_ops.gather_fused_parts(fused_m, codes_m),
+            lambda plan=plan, codes_m=codes_m: adv_ref.gather_fused_parts_ref(
+                adv_ops.fuse_tables(plan, "cpu"), codes_m.cpu()), "equal")
     table = torch.from_numpy(rng.standard_normal((999, 1), dtype=np.float32)
                              ).to(dev)
     codes = torch.from_numpy(rng.integers(0, 999, 1 << 25).astype(np.int32)
@@ -123,7 +165,7 @@ def _cases(rng, dev):
     return cases
 
 
-def run_turn(tree: Path, seed: int) -> None:
+def run_turn(tree: Path, seed: int, only) -> None:
     """One version's turn: a JSON line per kernel on stdout."""
     sys.path[0] = str(tree / "src")
     import numpy as np
@@ -133,15 +175,26 @@ def run_turn(tree: Path, seed: int) -> None:
     flush = torch.empty(timers.L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     for name, (call, plain, check) in _cases(np.random.default_rng(seed),
                                              dev).items():
+        if only and not name.startswith(tuple(only)):
+            continue
         got = call()
         torch.cuda.synchronize()
-        got, want = got.cpu(), plain()
-        within = isinstance(check, str) or bool(
+        want = plain()
+        if isinstance(got, tuple):       # the scan's (mask, count)
+            equal = torch.equal(got[0].cpu(), want[0]) and \
+                int(got[1]) == int(want[1])
+            digest = hashlib.sha256(got[0].cpu().numpy().tobytes()
+                                    + str(int(got[1])).encode())
+        else:
+            got = got.cpu()
+            equal = torch.equal(got, want)
+            digest = hashlib.sha256(got.numpy().tobytes())
+        exact = isinstance(check, str)
+        within = exact or bool(
             ((got.double() - want.double()).abs() <= check.double()).all())
         print(json.dumps({
-            "kernel": name, "equal": torch.equal(got, want),
-            "within_bound": within,
-            "digest": hashlib.sha256(got.numpy().tobytes()).hexdigest(),
+            "kernel": name, "equal": equal, "exact": exact,
+            "within_bound": within, "digest": digest.hexdigest(),
             "ms": timers.time_ms(call, iters=50, reps=15, queue_ahead=True),
             "cold_ms": timers.time_cold_ms(call, flush, launches=50),
             "device_us": device_us(call)}), flush=True)
@@ -154,10 +207,11 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--base", type=Path)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", nargs="*", default=[])
     ap.add_argument("--tree", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.tree is not None:
-        run_turn(args.tree.resolve(), args.seed)
+        run_turn(args.tree.resolve(), args.seed, args.only)
         return
     if args.base is None:
         ap.error("--base DIR is required")
@@ -166,7 +220,8 @@ def main() -> None:
     digests = {}
     for turn, (label, tree) in enumerate(turns):
         out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                              "--tree", str(tree), "--seed", str(args.seed)],
+                              "--tree", str(tree), "--seed", str(args.seed),
+                              "--only", *args.only],
                              capture_output=True, text=True)
         if out.returncode:
             raise SystemExit(f"compare_versions: the {label} version's turn "
@@ -180,11 +235,11 @@ def main() -> None:
                 print(f"{name} turn {turn} {label}: {r['device_us']:.3f} us "
                       "of device time a call (torch.profiler)", flush=True)
                 continue
-            exact = name.startswith("adv_gather") or label == "this"
-            if not (r["equal"] if exact else r["within_bound"]):
+            if not (r["equal"] if r["exact"] or label == "this"
+                    else r["within_bound"]):
                 raise SystemExit(f"compare_versions: {name}, {label} "
                                  "version: differs from its plain version")
-            if name.startswith("adv_gather") and \
+            if r["exact"] and \
                     digests.setdefault(name, r["digest"]) != r["digest"]:
                 raise SystemExit(f"compare_versions: {name}: the two "
                                  "versions disagree")

@@ -1,9 +1,11 @@
 """Edge-case inputs that hold the CUDA kernels against their plain versions
 on a card: a random packed stream at every device width, the packed-rows
-gather's plans and row counts, the scan's term sets, the masked counts'
-cases, the one-hot wide layer's grid (with a shape for its gradient's
-grouped route), and the Table 6 path's bit-unpack, counts and single-table
-gather cases.
+gather's plans and row counts, the int32 multi-table gather's plans and
+row counts, the scan's term sets and its layout cases (word offsets off
+every multiple of 4, every width under both kinds, ragged n), the masked
+counts' cases, the one-hot wide layer's grid (with a shape for its
+gradient's grouped route), and the Table 6 path's bit-unpack, counts and
+single-table gather cases.
 
 ``chip_smoke.py`` and ``tests/test_torch_kernels_cuda.py`` both draw their
 edge sets from here, so the two stay one set. Nothing here launches a
@@ -23,14 +25,24 @@ DBS = (1, 2, 4, 8, 16, 32)
 SHARED_LIMIT_KS = (58_112, 58_113, 100_000)
 
 
-def random_stream(rng: np.random.Generator, cap: int, device,
-                  dbs=DBS) -> tuple[torch.Tensor, torch.Tensor, list[int]]:
-    """Random words for ``cap`` rows at each width, back to back (codes
-    past every table, 32-bit fields past 2**31): (flat, wmeta, word
-    offsets)."""
-    words = [rng.integers(0, 1 << 32, cap * db // 32,
-                          dtype=np.uint64).astype(np.uint32) for db in dbs]
-    offs = [int(o) for o in np.cumsum([0] + [w.size for w in words])[:-1]]
+def random_stream(rng: np.random.Generator, cap: int, device, dbs=DBS,
+                  gaps=None, high=1 << 32
+                  ) -> tuple[torch.Tensor, torch.Tensor, list[int]]:
+    """Random words below ``high`` for ``cap`` rows at each width, back to
+    back (codes past every table; by default 32-bit fields past 2**31):
+    (flat, wmeta, word offsets). ``gaps`` puts that many random words
+    before each column, so its word offset need not be a multiple of 4."""
+    gaps = (0,) * len(dbs) if gaps is None else gaps
+    words, offs, off = [], [], 0
+    for db, gap in zip(dbs, gaps):
+        if gap:
+            words.append(rng.integers(0, high, gap, dtype=np.uint64)
+                         .astype(np.uint32))
+        off += gap
+        offs.append(off)
+        words.append(rng.integers(0, high, cap * db // 32,
+                                  dtype=np.uint64).astype(np.uint32))
+        off += words[-1].size
     flat = torch.from_numpy(np.concatenate(words).view(np.int32)).to(device)
     return flat, ops.word_meta(offs, dbs, device), offs
 
@@ -73,6 +85,37 @@ def packed_rows_cases(rng: np.random.Generator, device, cap: int = 4096):
                 rows.astype(np.int32)).to(device)
 
 
+# the int32 multi-table gather's plans, (K, F) per table: out_dims 1 (C =
+# 1), 4 (the train step's), 31 and 33 (C = 6, a K = 1 table), 58 (the int32
+# service's), 200, and 17 over C = 9 (past the 8 codes of a row the kernel
+# loads at once); and its row counts
+MULTI_PLANS = (
+    ((200, 1),),
+    ((72, 2), (230, 2)),
+    ((1, 1), (3, 3), (11, 2), (200, 5), (700, 10), (300, 10)),
+    ((1, 1), (3, 3), (11, 2), (200, 5), (700, 11), (300, 11)),
+    ((72, 2), (50, 50), (230, 2), (4, 4)),
+    ((1, 1), (3, 3), (11, 2), (200, 5), (700, 89), (300, 100)),
+    ((1, 1), (3, 2), (5, 1), (7, 3), (2, 2), (11, 1), (4, 4), (9, 2),
+     (6, 1)),
+)
+MULTI_NS = (1, 7, 33, 1024, 5000)
+
+
+def multi_cases(rng: np.random.Generator, device):
+    """Yield ``(fused, codes)`` for the int32 multi-table gather: each plan
+    of :data:`MULTI_PLANS` at each n of :data:`MULTI_NS`, codes (C, n) in
+    [-3, K + 3) with the int32 ends and K among them (they clamp into
+    their own table)."""
+    for plan in MULTI_PLANS:
+        fused = ops.fuse_tables([rng.standard_normal((k, f))
+                                 .astype(np.float32) for k, f in plan],
+                                device)
+        for n in MULTI_NS:
+            codes = np.stack([_codes_with_ends(rng, k, n) for k, _ in plan])
+            yield fused, torch.from_numpy(codes).to(device)
+
+
 def scan_term_sets(rng: np.random.Generator) -> list[list[ScanTerm]]:
     """Term sets over a :func:`random_stream` at :data:`DBS`: both kinds at
     every width, two terms on one column, LUTs shorter than the codes (the
@@ -89,6 +132,76 @@ def scan_term_sets(rng: np.random.Generator) -> list[list[ScanTerm]]:
         [T(col=1, kind=0, lo=0, hi=3)],                   # full
         [T(col=5, kind=0, lo=-(1 << 31), hi=(1 << 31) - 1)],
     ]
+
+
+# the scan's layout cases: each column's words after 0 words (offsets all
+# multiples of 4: SCAN_LAYOUT_CAP is a multiple of 128 rows) or after 1, 1,
+# 1, 2, 1, 1 (offsets 1, 2, 3, 1, 2, 3 mod 4: none a multiple of 4); n of
+# one row, around a 16-row group, past 128 rows, and one row past a block's
+# 8,192-row step (predicate_scan.cu)
+SCAN_LAYOUT_GAPS = ((0,) * len(DBS), (1, 1, 1, 2, 1, 1))
+SCAN_LAYOUT_NS = (1, 15, 16, 17, 127, 129, 4097, 8193)
+SCAN_LAYOUT_CAP = 8320
+
+
+def scan_layout_term_sets(rng: np.random.Generator) -> list[list[ScanTerm]]:
+    """Term sets over a stream at :data:`DBS`: a range and a LUT (some
+    shorter than the codes: the clamp) at every width; ranges reaching
+    below 0 and past 2**db, empty after the clamp, and lo > hi; the
+    pushdown path's two shapes (an 8-bit range and an 8-bit LUT; a 2-bit
+    LUT and an 8-bit LUT), four widths in one set, and 40 terms (past
+    the 32 the kernel stages at once)."""
+    T = ScanTerm
+    sets = []
+    for c, db in enumerate(DBS):
+        k = 1 << min(db, 12)
+        lo = int(rng.integers(0, k))
+        sets.append([T(col=c, kind=0, lo=lo, hi=int(rng.integers(lo, k)))])
+        size = int(rng.integers(1, k + 3))
+        sets.append([T(col=c, kind=1,
+                       lut=(rng.random(size) < 0.5).astype(np.int32))])
+    sets += [
+        [T(col=3, kind=0, lo=-7, hi=300)],               # full after clamp
+        [T(col=3, kind=0, lo=260, hi=400)],              # empty after clamp
+        [T(col=1, kind=0, lo=-3, hi=-1)],                # empty: below 0
+        [T(col=4, kind=0, lo=-100, hi=70_000)],
+        [T(col=0, kind=0, lo=1, hi=5)],
+        [T(col=2, kind=0, lo=9, hi=4)],                  # lo > hi
+        [T(col=1, kind=0, lo=19, hi=19),
+         T(col=3, kind=1, lut=(rng.random(72) < 0.2).astype(np.int32))],
+        [T(col=1, kind=1, lut=np.array([0, 1, 0, 1], np.int32)),
+         T(col=3, kind=1, lut=(rng.random(230) < 0.5).astype(np.int32))],
+        [T(col=0, kind=1, lut=np.array([1], np.int32)),
+         T(col=2, kind=1, lut=(rng.random(11) < 0.5).astype(np.int32)),
+         T(col=4, kind=0, lo=100, hi=50_000),
+         T(col=5, kind=1, lut=(rng.random(3000) < 0.5).astype(np.int32))],
+    ]
+    # past the 32 terms the kernel stages at once: most rows pass each term
+    # (AND keeps some), every width and kind
+    many = []
+    for i in range(40):
+        c = i % len(DBS)
+        k = 1 << min(DBS[c], 12)
+        many.append(T(col=c, kind=0, lo=0, hi=(1 << 31) - 1) if i % 2 else
+                    T(col=c, kind=1,
+                      lut=(rng.random(k) < 0.97).astype(np.int32)))
+    sets.append(many)
+    return sets
+
+
+def scan_layout_cases(rng: np.random.Generator, device):
+    """Yield ``(flat, wmeta, terms)`` for the scan's word-major layout:
+    each of :func:`scan_layout_term_sets` over a :func:`random_stream` of
+    :data:`SCAN_LAYOUT_CAP` rows per column at each of
+    :data:`SCAN_LAYOUT_GAPS`. The caller scans each under AND and OR at
+    every n of :data:`SCAN_LAYOUT_NS`, all inside the stream's capacity.
+    32-bit fields stay below 2**31 here, where the reference's two routes
+    agree on LUT terms; ``scan_term_sets`` covers the negative codes."""
+    for gaps in SCAN_LAYOUT_GAPS:
+        flat, wmeta, _ = random_stream(rng, SCAN_LAYOUT_CAP, device,
+                                       gaps=gaps, high=1 << 31)
+        for terms in scan_layout_term_sets(rng):
+            yield flat, wmeta, terms
 
 
 def masked_counts_cases(rng: np.random.Generator, cap: int, device):

@@ -101,6 +101,26 @@ def test_fused_tables_accounting():
                                      for _ in range(f)]
 
 
+def test_fused_tables_jmeta_addresses_every_column():
+    """jmeta row j (the tiled and per-element kernels' addressing) names
+    output column j's table, the flat index of its entry in table row 0,
+    the table's width and its last row: entry (k, j) of the output's
+    table sits at jmeta[j, 1] + k * jmeta[j, 2]."""
+    _, tables, *_ = _inputs(3)
+    fused = ops.fuse_tables(tables, "cpu")
+    flat = fused.tables.numpy()
+    assert fused.jmeta.shape == (fused.out_dim, 4)
+    j = 0
+    for c, t in enumerate(tables):
+        for f in range(t.shape[1]):
+            col, first, dim, limit = fused.jmeta[j].tolist()
+            assert (col, dim, limit) == (c, t.shape[1], t.shape[0] - 1)
+            assert np.array_equal(
+                flat[first + np.arange(t.shape[0]) * dim], t[:, f])
+            j += 1
+    assert j == fused.out_dim
+
+
 def test_word_index_clamps_to_stream_end():
     """Rows past every stream read the flat stream's last word instead of
     out of bounds, like the reference's clip-mode split path."""
@@ -179,3 +199,25 @@ def test_packed_rows_edge_sets_match_pallas(plan):
         got = ops.adv_gather_packed_rows(flat, wmeta, fused, rows)
         assert got.shape == want.shape == (rows.numel(), fused.out_dim)
         assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("plan", range(len(edge_cases.MULTI_PLANS)))
+@pytest.mark.parametrize("n", edge_cases.MULTI_NS)
+def test_multi_edge_sets_match_pallas(plan, n):
+    """``edge_cases.multi_cases`` (the card's edge sets for the tiled int32
+    gather): out_dims 1, 4, 17, 31, 33, 58 and 200, C = 1 to 9, a K = 1
+    table, n in ``MULTI_NS``, codes below 0, past K and the int32 ends.
+    The plain version equals the reference's fused Pallas kernel
+    (interpret mode) bit for bit."""
+    cases = list(edge_cases.multi_cases(np.random.default_rng(13), "cpu"))
+    fused, codes = cases[plan * len(edge_cases.MULTI_NS)
+                         + edge_cases.MULTI_NS.index(n)]
+    assert codes.shape == (len(edge_cases.MULTI_PLANS[plan]), n)
+    tables = [fused.tables[b:b + (lim + 1) * d].view(lim + 1, d).numpy()
+              for lim, b, d, _ in fused.meta.tolist()]
+    want = np.asarray(jops.adv_gather_fused(
+        jops.fuse_tables(tables), jnp.asarray(codes.numpy()),
+        interpret=True))
+    got = ops.gather_fused_parts(fused, codes)
+    assert got.shape == want.shape == (n, fused.out_dim)
+    assert np.array_equal(got.numpy(), want)

@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on a card: the
-three ADV gathers, the predicate scan, the masked counts, the one-hot
+three ADV gathers (the tiled ones on their edge sets too), the predicate
+scan (on its term sets and its layout cases), the masked counts, the one-hot
 wide layer with its gradient (bit for bit against the CPU, and the same in
 every launch), and the Table 6 path's bit-unpack, counts and single-table
 gather.
@@ -96,6 +97,22 @@ def test_packed_rows_kernel_matches_plain_version_on_card(cuda):
 
 
 @pytest.mark.cuda
+def test_multi_kernel_matches_plain_version_on_card(cuda):
+    """``edge_cases.multi_cases``: out_dims 1, 4, 17, 31, 33, 58 and 200,
+    C = 1 to 9, a K = 1 table, 1 to 5,000 rows, codes below 0, past K and
+    the int32 ends: the kernel equals its plain version bit for bit, one
+    launch each."""
+    for fused, codes in edge_cases.multi_cases(np.random.default_rng(13),
+                                               cuda):
+        before = ops.LAUNCHES["gather_fused_parts"]
+        got = ops.gather_fused_parts(fused, codes)
+        want = ref.gather_fused_parts_ref(fused, codes)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (fused.out_dim, codes.shape)
+        assert ops.LAUNCHES["gather_fused_parts"] == before + 1
+
+
+@pytest.mark.cuda
 def test_wrappers_reject_mixed_devices(cuda):
     fused = ops.fuse_tables([np.ones((3, 2), np.float32)], cuda)
     with pytest.raises(ValueError):
@@ -123,6 +140,29 @@ def test_scan_kernel_matches_plain_version_on_card(cuda, combine):
             assert mask.is_cuda and mask.dtype == torch.bool
             assert torch.equal(mask, want)
             assert int(count) == int(want_count) == int(want.sum())
+            assert scan_ops.LAUNCHES["predicate_scan"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combine", ["and", "or"])
+def test_scan_layout_cases_on_card(cuda, combine):
+    """``edge_cases.scan_layout_cases``: word offsets that are all
+    multiples of 4 and none, every width under both kinds, bounds below 0,
+    past 2**db and empty after the clamp, n around a 16-row group and one
+    row past a block's step: mask and count equal the plain version's,
+    one launch each."""
+    for flat, wmeta, terms in edge_cases.scan_layout_cases(
+            np.random.default_rng(17), cuda):
+        packed = scan_ops.pack_terms(terms, DBS, cuda)
+        for n in edge_cases.SCAN_LAYOUT_NS:
+            before = scan_ops.LAUNCHES["predicate_scan"]
+            mask, count = scan_ops.predicate_scan(flat, wmeta, packed, n,
+                                                  combine)
+            want, want_count = scan_ref.predicate_scan_ref(flat, wmeta,
+                                                           packed, n, combine)
+            torch.cuda.synchronize()
+            assert torch.equal(mask, want), (terms, n)
+            assert int(count) == int(want_count), (terms, n)
             assert scan_ops.LAUNCHES["predicate_scan"] == before + 1
 
 

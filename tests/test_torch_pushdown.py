@@ -34,6 +34,7 @@ from repro_torch.columnar.dictionary import Dictionary
 from repro_torch.core import (FeatureExecutor, FeaturePlan, FeatureSet,
                               plan_from_reference)
 from repro_torch.core.pipeline import _pad32
+from repro_torch.kernels import edge_cases
 from repro_torch.kernels.predicate_scan import ops as scan_ops
 from repro_torch.kernels.predicate_scan import ref as scan_ref
 from repro_torch.kernels.hist import ref as hist_ref
@@ -304,6 +305,42 @@ def test_scan_empty_full_and_clamp(combine):
     mask, count = scan_ops.predicate_scan(
         words, wmeta, scan_ops.pack_terms(full, DBS, "cpu"), n, combine)
     assert bool(mask.all()) and int(count) == n
+
+
+# the card's layout cases, one test per (layout, term set)
+_LAYOUT_CASES = len(edge_cases.SCAN_LAYOUT_GAPS) * len(
+    edge_cases.scan_layout_term_sets(np.random.default_rng(0)))
+
+
+@pytest.mark.parametrize("i", range(_LAYOUT_CASES))
+def test_scan_layout_cases_match_reference(i):
+    """``edge_cases.scan_layout_cases`` (the card's edge sets for the
+    word-major kernel): column word offsets off every multiple of 4, every
+    width under both kinds, bounds below 0, past 2**db and empty after the
+    clamp, AND and OR, n in ``SCAN_LAYOUT_NS`` (around a 16-row group and
+    one row past a block's step). The plain version equals the reference's
+    Pallas kernel (interpret mode), mask and count, at every n."""
+    flat, wmeta, terms = list(edge_cases.scan_layout_cases(
+        np.random.default_rng(17), "cpu"))[i]
+    offs, dbs = wmeta[:, 0].tolist(), wmeta[:, 1].tolist()
+    assert dbs == list(DBS)
+    assert all(off % 4 if i >= _LAYOUT_CASES // 2 else off % 4 == 0
+               for off in offs)
+    jterms = [jscan.ScanTerm(col=t.col, kind=t.kind, lo=t.lo, hi=t.hi,
+                             lut=t.lut) for t in terms]
+    jflat = jnp.asarray(flat.numpy().view(np.uint32))
+    packed = scan_ops.pack_terms(terms, DBS, "cpu")
+    for combine in ("and", "or"):
+        # one compile: every n pads to the same tile
+        want = {n: np.asarray(jscan.predicate_scan(
+            jflat, offs, DBS, jterms, n, combine, bn=16384, interpret=True))
+            for n in edge_cases.SCAN_LAYOUT_NS}
+        for n in edge_cases.SCAN_LAYOUT_NS:
+            mask, count = scan_ops.predicate_scan(flat, wmeta, packed, n,
+                                                  combine)
+            assert mask.shape == (n,) and np.array_equal(mask.numpy(),
+                                                         want[n])
+            assert int(count) == int(want[n].sum())
 
 
 def test_negative_codes_follow_the_documented_semantics():
