@@ -31,6 +31,12 @@ checkout's sources (into build/torch_ext/) and needs one card. Phases:
    1024}, K in {1, 4, 600, 65537}, F in {1, 129}, codes -1, K, 2**31 - 1,
    -2**31, bf16, and (2, 200,000, 1,000, 64), (2, 8,192, 50, 1) and
    (3, 20,000, 3, 2), where the gradient takes its grouped route; for the
+   wide forward F in {1, 2, 3, 4, 8, 128, 129}, C in {0, 1, 2, 8, 33}, N
+   in {0, 1, 33, 1024, 1025}, K in {1, 50, 600}, w also as a view 4 bytes
+   into a larger tensor, and F 1,024 and 1,030 (rows taken in passes); for
+   the masked counts k around 2**db and the
+   per-warp bins' 4,096, one code in every row, word offsets off a
+   multiple of 4, a mask view one byte in, n around a word; for the
    Table 6 kernels ``edge_cases``' bit-unpack, counts and single-table
    gather sets, the gather also at F in {1, 3, 16, 999} with n in {1, 3,
    5, 4097} and on views not 16-byte aligned). Bit for bit;
@@ -41,7 +47,8 @@ checkout's sources (into build/torch_ext/) and needs one card. Phases:
    and where one PyTorch call computes the same function, that call's
    (``embedding_bag`` and its backward for the wide layer, also at the JAX
    sweep's largest shape (2, 256, 600, 128); ``bincount`` for the counts;
-   ``index_select`` for the single-table gather).
+   ``index_select`` for the single-table gather). The masked counts are
+   timed at both pushdown calls' shapes (groupby_where's in the report).
 3. serving path — with every launch count set to 0 first: a FeatureService
    over the packed plan serves 4,096 requests of 128/256/512 uniform random
    rows; FeatureExecutor.batches(4096) serves 64 block-shuffled range
@@ -361,7 +368,10 @@ def pushdown_edge_cases(ec, scan_ops, scan_ref, hist_ops, hist_ref, dev,
     empty after the clamp, n around a 16-row group and one row past a
     block's step) under AND and OR. The masked counts:
     ``ec.masked_counts_cases`` (every width, k = 1, codes >= k, all-false /
-    all-true / random masks, k at the shared-memory limit and past it)."""
+    all-true / random masks, k at the shared-memory limit and past it) and
+    ``ec.masked_counts_word_cases`` (k around 2**db and the per-warp bins'
+    limit, one code in every row, unaligned masks and word offsets, n
+    around a word)."""
     cap = 4096
     flat, wmeta, _ = ec.random_stream(rng, cap, dev)
     err = {"predicate_scan": 0.0, "masked_counts": 0.0}
@@ -400,6 +410,12 @@ def pushdown_edge_cases(ec, scan_ops, scan_ref, hist_ops, hist_ref, dev,
                     f"masked_counts edge set db={db} k={k} mask {j} n={n}",
                     hist_ops.masked_counts(words, off, db, mask, k, n),
                     hist_ref.masked_counts_ref(words, off, db, mask, k, n)))
+    for words, off, db, mask, k, n in ec.masked_counts_word_cases(rng, dev):
+        err["masked_counts"] = max(err["masked_counts"], check_equal(
+            f"masked_counts word-major case db={db} k={k} off={off} n={n} "
+            f"mask at {mask.data_ptr() % 16} mod 16",
+            hist_ops.masked_counts(words, off, db, mask, k, n),
+            hist_ref.masked_counts_ref(words, off, db, mask, k, n)))
     return err
 
 
@@ -508,26 +524,41 @@ def measure(kernels: dict, iters: int, plain_iters: int) -> None:
 
 
 def pushdown_shape_kernels(scan_ops, scan_ref, hist_ops, hist_ref, ex_p,
-                           plan_p, n_rows, p_scan, p_mask,
-                           group_col: str) -> dict[str, dict]:
+                           plan_p, n_rows, p_scan, p_mask, group_col: str,
+                           agg_col: str) -> dict[str, dict]:
     """Both pushdown kernels at the pushdown path's shapes: the scan of
     ``p_scan`` over the whole resident table, and the masked counts of
-    ``group_col`` under ``p_mask``'s mask (the groupby_where call).
-    The scan's bytes: every word of each column a term reads, one mask
-    byte per row, the term table and LUTs, the count. The counts' bytes:
-    the words holding at least one selected row, one mask byte per row,
-    4k bytes out."""
+    ``group_col`` under ``p_mask``'s mask (the groupby_where call). The
+    masked counts are also timed at the agg_where call, ``agg_col`` under
+    ``p_scan``'s mask, and logged (the kernels line keeps the
+    groupby_where shape). The scan's bytes: every word of each column a
+    term reads, one mask byte per row, the term table and LUTs, the count.
+    The counts' bytes: the words holding at least one selected row, one
+    mask byte per row, 4k bytes out."""
     flat, wmeta = ex_p._flat_words, ex_p._wmeta
     dbs = plan_p.device_bits
     _, comb1, packed1 = ex_p._compiled_pred(p_scan)
     _, comb2, packed2 = ex_p._compiled_pred(p_mask)
+    mask1, _ = scan_ops.predicate_scan(flat, wmeta, packed1, n_rows, comb1)
     mask2, _ = scan_ops.predicate_scan(flat, wmeta, packed2, n_rows, comb2)
-    ci = plan_p.columns.index(group_col)
-    off, db = ex_p._word_offs[ci], dbs[ci]
-    k = ex_p._dictionary(group_col).cardinality
-    s = 32 // db
-    padded = torch.nn.functional.pad(mask2.to(torch.uint8), (0, -n_rows % s))
-    words_needed = int(padded.view(-1, s).any(1).sum())
+
+    def counts_entry(col: str, mask: torch.Tensor, call: str) -> dict:
+        ci = plan_p.columns.index(col)
+        off, db = ex_p._word_offs[ci], dbs[ci]
+        k = ex_p._dictionary(col).cardinality
+        s = 32 // db
+        padded = torch.nn.functional.pad(mask.to(torch.uint8),
+                                         (0, -n_rows % s))
+        words_needed = int(padded.view(-1, s).any(1).sum())
+        return dict(
+            call=lambda: hist_ops.masked_counts(flat, off, db, mask, k,
+                                                n_rows),
+            plain=lambda: hist_ref.masked_counts_ref(flat, off, db, mask, k,
+                                                     n_rows),
+            bytes=4 * words_needed + n_rows + 4 * k,
+            shape=f"{call}: {col} ({db}-bit, k={k}) x {n_rows} rows, "
+            f"{int(mask.sum())} selected")
+
     out = {}
     out["predicate_scan"] = dict(
         call=lambda: scan_ops.predicate_scan(flat, wmeta, packed1, n_rows,
@@ -538,14 +569,10 @@ def pushdown_shape_kernels(scan_ops, scan_ref, hist_ops, hist_ref, ex_p,
         + n_rows + packed1.nbytes + 4,
         shape=f"{packed1.n_terms} terms ({comb1}) over columns "
         f"{sorted(set(packed1.cols))} x {n_rows} rows")
-    out["masked_counts"] = dict(
-        call=lambda: hist_ops.masked_counts(flat, off, db, mask2, k, n_rows),
-        plain=lambda: hist_ref.masked_counts_ref(flat, off, db, mask2, k,
-                                                 n_rows),
-        bytes=4 * words_needed + n_rows + 4 * k,
-        shape=f"{group_col} ({db}-bit, k={k}) x {n_rows} rows, "
-        f"{int(mask2.sum())} selected")
+    out["masked_counts"] = counts_entry(group_col, mask2, "groupby_where")
     measure(out, iters=20, plain_iters=2)
+    measure({"masked_counts": counts_entry(agg_col, mask1, "agg_where")},
+            iters=20, plain_iters=2)
     return out
 
 
@@ -553,8 +580,11 @@ def wide_edge_cases(ec, wide_ops, wide_ref, dev, rng) -> dict[str, float]:
     """``ec.onehot_wide_cases``: C in {0, 1, 8}, N in {0, 1, 33, 1024},
     K in {1, 4, 600, 65537}, F in {1, 129}, codes -1, K, 2**31 - 1 and
     -2**31 among them, and ``ec.ONEHOT_GROUPED_SHAPES``, where the gradient
-    takes its grouped route. Forward bit for bit in float32 and bfloat16; the
-    gradient bit for bit against the CPU and across two launches."""
+    takes its grouped route; ``ec.onehot_wide_forward_cases`` (F from 1 to
+    129, C to 33, N to 1,025, w also as an unaligned view; F 1,024 and
+    1,030 at ``ec.WIDE_FWD_PASSES``). Forward bit for
+    bit in float32 and bfloat16; the gradient bit for bit against the CPU
+    and across two launches."""
     err = {"onehot_wide": 0.0, "onehot_wide_backward": 0.0}
     for codes, w, g in itertools.chain(ec.onehot_wide_cases(rng, dev),
                                        ec.onehot_wide_grouped_cases(rng,
@@ -572,6 +602,14 @@ def wide_edge_cases(ec, wide_ops, wide_ref, dev, rng) -> dict[str, float]:
         err["onehot_wide_backward"] = max(err["onehot_wide_backward"], check(
             f"onehot_wide_backward edge set {name}",
             wide_ops.onehot_wide_backward(codes, g, k), None))
+    for codes, w in itertools.chain(
+            ec.onehot_wide_forward_cases(rng, dev),
+            ec.onehot_wide_forward_cases(rng, dev, **ec.WIDE_FWD_PASSES)):
+        err["onehot_wide"] = max(err["onehot_wide"], check_equal(
+            f"onehot_wide forward case (C, N, K, F) = "
+            f"{tuple(codes.shape) + tuple(w.shape[1:])} {w.dtype} at "
+            f"{w.data_ptr() % 16} mod 16", wide_ops.onehot_wide(codes, w),
+            wide_ref.onehot_wide_ref(codes, w)))
     return err
 
 
@@ -1398,7 +1436,7 @@ def main() -> None:
                                  coalesce * bucket, range_batch, bucket)
     kernels.update(pushdown_shape_kernels(scan_ops, scan_ref, hist_ops,
                                           hist_ref, ex_p, plan_p, n_rows, p1,
-                                          p2, "device"))
+                                          p2, "device", "income"))
     train_kernels = train_shape_kernels(
         wide_ops, wide_ref, ops, ref, pipe, wide_codes,
         np.random.default_rng(args.seed + 7), 1024, dev)

@@ -17,7 +17,8 @@ after a 128 MiB L2 flush (the median of 50 single launches); then its
 device time per call from ``torch.profiler`` (the kernels' and memsets'
 durations over 100 calls, without the gaps between launches), beside that
 of a one-element fill, the least a launch takes. ``--only`` keeps the
-cases whose names start with one of its words. The shapes:
+cases whose first word (the kernel's wrapper) is one of its words. The
+shapes:
 
 - the predicate scan over a 2**25-row random stream at device widths
   8/8/8/2 (27,262,976 words) at the pushdown path's two term shapes: P1, a
@@ -32,16 +33,22 @@ cases whose names start with one of its words. The shapes:
   (out_dim 4, the train step's);
 - the single-table gather: ``zscore``'s (999, 1) float32 table by 2**25
   codes;
+- the masked counts over the same stream: the 2-bit column, k = 4, under a
+  52% random mask (``masked_counts groupby_where``, the shape of
+  ``groupby_where("device", P2)``), and an 8-bit column, k = 230, under a
+  0.44% one (``masked_counts agg_where``, of ``agg_where(P1, "income")``);
+- the wide forward at :data:`FORWARD_SHAPES`: the train shape (codes of
+  ``state`` below 50 and of ``device`` below 4) and the JAX sweep's;
 - the wide gradient at :data:`GRADIENT_SHAPES`: the train shape (codes of
   ``state`` below 50 and of ``device`` below 4), the JAX sweep's shape,
   the train shape's columns at more rows, and the edge sets' grouped
   shapes.
 
-The scan, mask and count, and the gathers must equal their plain versions,
-and the two versions each other, bit for bit; the gradient of this
-checkout must equal the CPU's bit for bit, the earlier one (float atomics)
-be within ``backward_sum_bound`` of it. One line per kernel and turn, then
-the card's name and power limit.
+The scan, mask and count, the masked counts, the wide forward and the
+gathers must equal their plain versions, and the two versions each other,
+bit for bit; the gradient of this checkout must equal the CPU's bit for
+bit, the earlier one (float atomics) be within ``backward_sum_bound`` of
+it. One line per kernel and turn, then the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -54,6 +61,8 @@ import sys
 from pathlib import Path
 
 THIS = Path(__file__).resolve().parents[3]       # this checkout's root
+# (C, N, K, F) of the wide forward: the train shape and the JAX sweep's
+FORWARD_SHAPES = ((2, 1024, 50, 1), (2, 256, 600, 128))
 # (C, N, K, F) of the wide gradient
 GRADIENT_SHAPES = ((2, 1024, 50, 1), (2, 256, 600, 128), (2, 2048, 50, 1),
                    (2, 4096, 50, 1), (2, 8192, 50, 1), (2, 65536, 50, 1),
@@ -150,6 +159,29 @@ def _cases(rng, dev):
                            lambda: adv_ref.adv_gather_ref(codes.cpu(),
                                                           table.cpu()),
                            "equal")
+    from repro_torch.kernels.hist import ops as hist_ops
+    from repro_torch.kernels.hist import ref as hist_ref
+    for label, col, k, share in (("groupby_where", 3, 4, 0.52),
+                                 ("agg_where", 2, 230, 0.0044)):
+        mask = torch.from_numpy(rng.random(n_rows) < share).to(dev)
+        mask_cpu, off, db = mask.cpu(), offs[col], dbs[col]
+        cases[f"masked_counts {label} ({db}-bit, k = {k})"] = (
+            lambda mask=mask, off=off, db=db, k=k: hist_ops.masked_counts(
+                flat, off, db, mask, k, n_rows),
+            lambda mask=mask_cpu, off=off, db=db, k=k:
+                hist_ref.masked_counts_ref(flat_cpu, off, db, mask, k,
+                                           n_rows), "equal")
+    for c, n, k, f in FORWARD_SHAPES:
+        cards = (50, 4) if (c, k) == (2, 50) else (k,) * c
+        wc = torch.from_numpy(np.stack([rng.integers(0, kc, n)
+                                        for kc in cards]).astype(np.int32)
+                              ).to(dev)
+        w = torch.from_numpy(rng.standard_normal((c, k, f), dtype=np.float32)
+                             ).to(dev)
+        cases[f"onehot_wide {(c, n, k, f)}"] = (
+            lambda wc=wc, w=w: wide_ops.onehot_wide(wc, w),
+            lambda wc=wc, w=w: wide_ref.onehot_wide_ref(wc.cpu(), w.cpu()),
+            "equal")
     for c, n, k, f in GRADIENT_SHAPES:
         cards = (50, 4) if (c, k) == (2, 50) else (k,) * c
         wc = torch.from_numpy(np.stack([rng.integers(0, kc, n)
@@ -175,7 +207,7 @@ def run_turn(tree: Path, seed: int, only) -> None:
     flush = torch.empty(timers.L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     for name, (call, plain, check) in _cases(np.random.default_rng(seed),
                                              dev).items():
-        if only and not name.startswith(tuple(only)):
+        if only and name.split()[0] not in only:
             continue
         got = call()
         torch.cuda.synchronize()

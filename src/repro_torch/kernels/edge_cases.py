@@ -3,8 +3,9 @@ on a card: a random packed stream at every device width, the packed-rows
 gather's plans and row counts, the int32 multi-table gather's plans and
 row counts, the scan's term sets and its layout cases (word offsets off
 every multiple of 4, every width under both kinds, ragged n), the masked
-counts' cases, the one-hot wide layer's grid (with a shape for its
-gradient's grouped route), and the Table 6 path's bit-unpack, counts and
+counts' cases (and the word-major kernel's grid), the one-hot wide
+layer's grid (with a shape for its gradient's grouped route) and its
+forward's grid, and the Table 6 path's bit-unpack, counts and
 single-table gather cases.
 
 ``chip_smoke.py`` and ``tests/test_torch_kernels_cuda.py`` both draw their
@@ -222,6 +223,64 @@ def masked_counts_cases(rng: np.random.Generator, cap: int, device):
     return cases, masks
 
 
+# the word-major masked counts' grid (hist.cu): k per width, around the
+# register counters' 2**db codes (widths 1-4), below, at and past the 8-bit
+# codes, and at the per-warp sub-histograms' last k (4,096) and past it
+MASKED_WORD_KS = {db: (1, (1 << db) - 1, 1 << db, (1 << db) + 3)
+                  for db in (1, 2, 4)}
+MASKED_WORD_KS.update({8: (4, 230, 256), 16: (3, 4096, 4097),
+                       32: (5, 4096)})
+# a column's first word at a multiple of 4 and not (the vector loads' path
+# and the 4-byte one)
+MASKED_WORD_GAPS = (0, 3)
+MASKED_WORD_CAP = 4096
+
+
+def pack_codes(codes: np.ndarray, db: int) -> np.ndarray:
+    """uint32 words holding ``codes`` (a multiple of 32 / db of them) at
+    ``db`` bits each, row r at bits (r % s) * db of word r / s."""
+    s = 32 // db
+    fields = codes.astype(np.uint64).reshape(-1, s)
+    shifts = np.arange(s, dtype=np.uint64) * np.uint64(db)
+    return np.bitwise_or.reduce(fields << shifts, axis=1).astype(np.uint32)
+
+
+def masked_counts_word_cases(rng: np.random.Generator, device,
+                             cap: int = MASKED_WORD_CAP, dbs=DBS):
+    """Yield ``(words, off, db, mask, k, n)`` for the word-major masked
+    counts: at every width, each k of :data:`MASKED_WORD_KS`, over a column
+    of random codes (below 2**13 at widths 16 and 32, where some 32-bit
+    fields are >= 2**31: dropped) and over one where every row has the same
+    code (every lane on one bin), its first word after each of
+    :data:`MASKED_WORD_GAPS` random words; masks random, all true, and
+    random as a view one byte into a larger tensor (not 16-byte aligned);
+    n in {1, s - 1, s + 1, cap - 1, cap} with s = 32 / db rows a word
+    (n = 0 at width 32)."""
+    for db in dbs:
+        s = 32 // db
+        hi = 1 << min(db, 13)
+        columns = [rng.integers(0, hi, cap, dtype=np.int64),
+                   np.full(cap, min(hi - 1, 2), np.int64)]
+        if db == 32:
+            columns[0][rng.permutation(cap)[:cap // 16]] = \
+                rng.integers(1 << 31, 1 << 32, cap // 16)
+        big = rng.random(cap + 1) < 0.5
+        masks = [torch.from_numpy(rng.random(cap) < 0.5).to(device),
+                 torch.ones(cap, dtype=torch.bool, device=device),
+                 torch.from_numpy(big).to(device)[1:]]
+        ns = sorted({1, s - 1, s + 1, cap - 1, cap})
+        for codes in columns:
+            for gap in MASKED_WORD_GAPS:
+                words = np.concatenate([
+                    rng.integers(0, 1 << 32, gap, dtype=np.uint64)
+                    .astype(np.uint32), pack_codes(codes, db)])
+                flat = torch.from_numpy(words.view(np.int32)).to(device)
+                for k in MASKED_WORD_KS[db]:
+                    for mask in masks:
+                        for n in ns:
+                            yield flat, gap, db, mask, k, n
+
+
 # the one-hot wide layer's grid: every (C, K, F) with every N
 ONEHOT_CS = (0, 1, 8)
 ONEHOT_NS = (0, 1, 33, 1024)
@@ -252,6 +311,52 @@ def onehot_wide_cases(rng: np.random.Generator, device, cs=ONEHOT_CS,
                     g = torch.from_numpy(rng.standard_normal(
                         (n, f), dtype=np.float32)).to(device)
                     yield codes, w, g
+
+
+# the wide forward's grid (onehot_wide.cu): F at one thread a row, at
+# groups of 1, 2 and 32 lanes (scalar and 16-byte units), and past 32
+# units; C past the F = 1 kernel's 8-column chunk and past a 32-lane code
+# chunk; N around a block's rows
+WIDE_FWD_FS = (1, 2, 3, 4, 8, 128, 129)
+WIDE_FWD_CS = (0, 1, 2, 8, 33)
+WIDE_FWD_NS = (0, 1, 33, 1024, 1025)
+WIDE_FWD_KS = (1, 50, 600)
+# rows wider than the 512 features (128 units) a 32-lane group holds at
+# once, taken in passes: the grid for onehot_wide_forward_cases' keywords
+WIDE_FWD_PASSES = dict(fs=(1024, 1030), cs=(1, 33), ks=(1, 50),
+                       ns=(1, 33, 1025))
+
+
+def onehot_wide_forward_cases(rng: np.random.Generator, device,
+                              fs=WIDE_FWD_FS, cs=WIDE_FWD_CS, ns=WIDE_FWD_NS,
+                              ks=WIDE_FWD_KS):
+    """Yield ``(codes, w)`` for the wide forward over every (F, C, K) and N
+    of its grid: codes mostly in [0, K), with -1, K, 2**31 - 1 and -2**31
+    among them; w (C, K, F) float32 and bfloat16, each as a tensor of its
+    own and as a contiguous view 4 bytes into a larger one (not aligned
+    for the 16-byte and 8-byte unit loads)."""
+    special = np.array([-1, 0, (1 << 31) - 1, -(1 << 31)], np.int64)
+    for f in fs:
+        for c in cs:
+            for k in ks:
+                w32 = rng.standard_normal((c, k, f), dtype=np.float32)
+                weights = []
+                for dtype in (torch.float32, torch.bfloat16):
+                    w = torch.from_numpy(w32).to(device, dtype)
+                    big = torch.empty(w.numel() + 4 // w.element_size(),
+                                      dtype=dtype, device=device)
+                    view = big[4 // w.element_size():].view(c, k, f)
+                    view.copy_(w)
+                    weights += [w, view]
+                special[1] = k
+                for n in ns:
+                    codes = rng.integers(0, k, (c, n))
+                    for ci in range(c):
+                        at = rng.permutation(n)[:special.size]
+                        codes[ci, at] = special[:at.size]
+                    codes = torch.from_numpy(codes.astype(np.int32)).to(device)
+                    for w in weights:
+                        yield codes, w
 
 
 # (C, N, K, F) past the scan route's rows or work, so the gradient takes

@@ -6,7 +6,8 @@
 //
 // A code outside [0, K) adds nothing and gets no gradient.
 //
-// What replaces what: onehot_wide_kernel replaces
+// What replaces what: the forward kernels (onehot_wide_f1_kernel at F = 1,
+// onehot_wide_rows_kernel at F > 1) replace
 // src/repro/kernels/onehot_wide/kernel.py _onehot_wide_kernel. The TPU had
 // no backward kernel: JAX differentiates the pure-jnp version
 // (onehot_wide_ref, a take_along_axis), whose gradient is a scatter-add into
@@ -15,14 +16,18 @@
 // The TPU kernel built a (BN, BK) one-hot tile of each column's codes and fed
 // it to the MXU against a (BK, F) block of W, C * K * F multiply-adds per
 // row, because a TPU core has no fast vector gather. Hopper has one, so the
-// forward here is a direct gather-sum: one thread per output element (n, f)
-// loops over the columns in ascending c, loads the code, skips it if it is
-// out of range and adds W[c, code, f] into a float32 register, then stores
-// once. The one-hot form's multiply-adds are all gone; what is left is below
-// the memory line (the hopper-kernels guide, section 1). Summing in
-// ascending c from +0.0 is the order of the TPU kernel's accumulation into
-// its output tile, so in float32 the result equals it bit for bit. A
-// bfloat16 W is widened to float32, summed there and rounded once.
+// forward here is a direct gather-sum: each row's codes are loaded once, an
+// out-of-range code adds nothing, and W[c, code, :] is added into float32
+// registers, then stored once. The one-hot form's multiply-adds are all
+// gone; what is left is below the memory line (the hopper-kernels guide,
+// section 1). Summing in ascending c from +0.0 is the order of the TPU
+// kernel's accumulation into its output tile, so in float32 the result
+// equals it bit for bit; loads are issued ahead of the adds, the adds keep
+// that order. A bfloat16 W is widened to float32, summed there and rounded
+// once. At the train shape a launch is a few microseconds of latency, so
+// the design shortens the dependent chain: no division per element (row
+// and feature come from the grid), 32-bit indices where the sizes fit, a
+// row's code loads issued together and then its W loads together.
 //
 // What bounds them on an H100: bytes. The forward reads 4 B of code per
 // (c, n), one W row slice per distinct (c, code) and writes N * F values;
@@ -71,50 +76,177 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr long long kMaxBlocks = 132LL * 16;  // grid-stride past this
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kColChunk = 8;    // forward, F = 1: columns loaded at once
+constexpr int kColBatch = 2;    // forward, F > 1: columns' W loads at once
+constexpr int kSlots = 4;       // forward, F > 1: units (4 features) a lane
 
-long long blocks_for(long long n) {
-  long long b = (n + kThreads - 1) / kThreads;
-  if (b < 1) b = 1;
-  return b > kMaxBlocks ? kMaxBlocks : b;
-}
-
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void narrow(float* out, float x) { *out = x; }
 __device__ __forceinline__ void narrow(__nv_bfloat16* out, float x) {
   *out = __float2bfloat16(x);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) onehot_wide_kernel(
+// Element i of w, widened to float32, through the read-only path.
+template <typename Idx>
+__device__ __forceinline__ float load_widen(const float* p, Idx i) {
+  return __ldg(p + i);
+}
+template <typename Idx>
+__device__ __forceinline__ float load_widen(const __nv_bfloat16* p, Idx i) {
+  const unsigned short bits =
+      __ldg(reinterpret_cast<const unsigned short*>(p) + i);
+  return __uint_as_float((uint32_t)bits << 16);
+}
+
+// Four consecutive elements of w from i (a multiple of 4), widened: one
+// 16-byte load of float32, one 8-byte load of bfloat16.
+template <typename Idx>
+__device__ __forceinline__ float4 load4_widen(const float* p, Idx i) {
+  return __ldg(reinterpret_cast<const float4*>(p + i));
+}
+template <typename Idx>
+__device__ __forceinline__ float4 load4_widen(const __nv_bfloat16* p, Idx i) {
+  const uint2 v = __ldg(reinterpret_cast<const uint2*>(p + i));
+  return make_float4(__uint_as_float(v.x << 16),
+                     __uint_as_float(v.x & 0xffff0000u),
+                     __uint_as_float(v.y << 16),
+                     __uint_as_float(v.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ void store4(float* out, const float (&a)[4]) {
+  *reinterpret_cast<float4*>(out) = make_float4(a[0], a[1], a[2], a[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* out,
+                                       const float (&a)[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(a[0], a[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(a[2], a[3]);
+  uint2 v;
+  v.x = *reinterpret_cast<const uint32_t*>(&lo);
+  v.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(out) = v;
+}
+
+// The forward at F = 1 (the train path): one thread a row. A chunk of
+// kColChunk columns issues all its code loads first, then all its W loads
+// (an out-of-range code loads nothing and adds +0.0), then adds them in
+// ascending c, so the chain is codes -> W -> store, two round trips per
+// chunk rather than two per column. Adding +0.0 leaves acc's bits as they
+// are: acc starts at +0.0 and a float sum is -0.0 only when both terms are.
+// Idx is int where the launcher has checked that C * N and C * K fit.
+template <typename T, typename Idx>
+__global__ void __launch_bounds__(kThreads) onehot_wide_f1_kernel(
     const int* __restrict__ codes, const T* __restrict__ w,
-    T* __restrict__ out, int n_cols, long long n, long long k, long long f) {
-  const long long total = n * f;
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-       i < total; i += stride) {
-    const long long row = i / f;
-    const long long j = i - row * f;
-    float acc = 0.0f;
-    for (int c = 0; c < n_cols; ++c) {
-      const int code = __ldg(codes + (long long)c * n + row);
-      if (code >= 0 && (long long)code < k)
-        acc += widen(w[((long long)c * k + code) * f + j]);
+    T* __restrict__ out, int n_cols, Idx n, Idx k) {
+  const Idx row = (Idx)blockIdx.x * kThreads + threadIdx.x;
+  if (row >= n) return;
+  float acc = 0.0f;
+  for (int c0 = 0; c0 < n_cols; c0 += kColChunk) {
+    int code[kColChunk];
+#pragma unroll
+    for (int j = 0; j < kColChunk; ++j)
+      code[j] = c0 + j < n_cols ? __ldg(codes + (Idx)(c0 + j) * n + row) : -1;
+    float v[kColChunk];
+#pragma unroll
+    for (int j = 0; j < kColChunk; ++j)
+      v[j] = code[j] >= 0 && code[j] < k
+                 ? load_widen(w, (Idx)(c0 + j) * k + code[j])
+                 : 0.0f;
+#pragma unroll
+    for (int j = 0; j < kColChunk; ++j) acc += v[j];
+  }
+  narrow(out + row, acc);
+}
+
+// The forward at F > 1: a group of `lanes` lanes (a power of two up to 32)
+// a row, lane q of it holding units q, q + lanes, ... of the row, a unit
+// being four consecutive features. The row's codes are loaded once, lane q
+// loading column c0 + q of each chunk of `lanes` columns, and broadcast
+// with __shfl_sync; kColBatch columns' W loads are issued before their
+// adds, which run in ascending c. Where F % 4 == 0 and w and out are
+// aligned for it (`vec`), a unit is one 16-byte (8 at bfloat16) load and
+// store; else four scalar ones in the same body. A lane holds up to
+// kSlots units (F up to 512 with 32 lanes); wider rows are taken
+// kSlots * 32 units at a time, each pass reading the codes again.
+template <typename T, typename Idx>
+__global__ void __launch_bounds__(kThreads) onehot_wide_rows_kernel(
+    const int* __restrict__ codes, const T* __restrict__ w,
+    T* __restrict__ out, int n_cols, Idx n, Idx k, Idx f, int lanes,
+    bool vec) {
+  const int lane = threadIdx.x & 31;
+  const int q = lane & (lanes - 1);
+  const int rows_per_warp = 32 / lanes;
+  const Idx row = ((Idx)blockIdx.x * kWarps + (threadIdx.x >> 5)) *
+                      rows_per_warp + lane / lanes;
+  const bool live = row < n;             // every lane runs the shuffles
+  const Idx units = (f + 3) / 4;
+  for (Idx u0 = 0; u0 < units; u0 += (Idx)kSlots * lanes) {
+    float acc[kSlots][4];
+#pragma unroll
+    for (int p = 0; p < kSlots; ++p)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) acc[p][t] = 0.0f;
+    for (int c0 = 0; c0 < n_cols; c0 += lanes) {
+      const int cn = n_cols - c0 < lanes ? n_cols - c0 : lanes;
+      const int mine =
+          live && q < cn ? __ldg(codes + (Idx)(c0 + q) * n + row) : -1;
+      for (int j0 = 0; j0 < cn; j0 += kColBatch) {
+        float v[kColBatch][kSlots][4];
+#pragma unroll
+        for (int b = 0; b < kColBatch; ++b) {
+          const int code = __shfl_sync(kFull, mine, j0 + b, lanes);
+          const bool in = j0 + b < cn && code >= 0 && code < k;
+          const Idx base = ((Idx)(c0 + j0 + b) * k + (in ? code : 0)) * f;
+#pragma unroll
+          for (int p = 0; p < kSlots; ++p) {
+            const Idx u = u0 + (Idx)p * lanes + q;
+            if (in && u < units) {
+              if (vec) {
+                const float4 x = load4_widen(w, base + 4 * u);
+                v[b][p][0] = x.x, v[b][p][1] = x.y, v[b][p][2] = x.z,
+                v[b][p][3] = x.w;
+              } else {
+#pragma unroll
+                for (int t = 0; t < 4; ++t)
+                  v[b][p][t] = 4 * u + t < f ? load_widen(w, base + 4 * u + t)
+                                             : 0.0f;
+              }
+            } else {
+#pragma unroll
+              for (int t = 0; t < 4; ++t) v[b][p][t] = 0.0f;
+            }
+          }
+        }
+#pragma unroll
+        for (int b = 0; b < kColBatch; ++b)
+#pragma unroll
+          for (int p = 0; p < kSlots; ++p)
+#pragma unroll
+            for (int t = 0; t < 4; ++t) acc[p][t] += v[b][p][t];
+      }
     }
-    narrow(out + i, acc);
+    if (!live) continue;
+#pragma unroll
+    for (int p = 0; p < kSlots; ++p) {
+      const Idx u = u0 + (Idx)p * lanes + q;
+      if (u >= units) continue;
+      T* dst = out + row * f + 4 * u;
+      if (vec) {
+        store4(dst, acc[p]);
+      } else {
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          if (4 * u + t < f) narrow(dst + t, acc[p][t]);
+      }
+    }
   }
 }
 
 constexpr int kTile = 1024;                // rows staged per pass (scan)
-constexpr int kWarps = kThreads / 32;
 constexpr int kScanThreads = 1024;         // grouped route's scan block
 constexpr int kScanRun = 8;                // counts a scan thread takes
 constexpr int kSumChunk = 128;             // placed g a summing warp reads
 constexpr int kWindow = 4096;              // codes counted per pass
-constexpr unsigned kFull = 0xffffffffu;
 // The scan route's most rows, and its most work in warp steps (some 0.2 ms
 // of issue over the 132 SMs); past either the grouped route is used.
 constexpr long long kScanRows = 2048;
@@ -503,6 +635,51 @@ long long scratch_ints(long long n_cols, long long n, long long k,
   return n_cols * (k * ((n + rows - 1) / rows) + n);
 }
 
+// Launch the forward with Idx as its index type: one thread a row at F = 1,
+// else a group of lanes a row (the fewest, a power of two up to 32, that
+// cover the row's units).
+template <typename T, typename Idx>
+int launch_forward_as(const int* codes, const T* w, T* out, int n_cols,
+                      long long n, long long k, long long f,
+                      cudaStream_t s) {
+  if (f == 1) {
+    const long long blocks = (n + kThreads - 1) / kThreads;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    onehot_wide_f1_kernel<T, Idx><<<(unsigned int)blocks, kThreads, 0, s>>>(
+        codes, w, out, n_cols, (Idx)n, (Idx)k);
+    return (int)cudaGetLastError();
+  }
+  const long long units = (f + 3) / 4;
+  int lanes = 1;
+  while (lanes < 32 && lanes < units) lanes *= 2;
+  const long long rows_per_block = kWarps * (32 / lanes);
+  const long long blocks = (n + rows_per_block - 1) / rows_per_block;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const uintptr_t vec_bytes = 4 * sizeof(T);
+  const bool vec = f % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(w) % vec_bytes == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % vec_bytes == 0;
+  onehot_wide_rows_kernel<T, Idx><<<(unsigned int)blocks, kThreads, 0, s>>>(
+      codes, w, out, n_cols, (Idx)n, (Idx)k, (Idx)f, lanes, vec);
+  return (int)cudaGetLastError();
+}
+
+// a * b <= 2**31 - 1 for a, b >= 0
+bool fits_int(long long a, long long b) {
+  return b == 0 || a <= 0x7fffffffLL / b;
+}
+
+// 32-bit indices where every index the forward forms fits: C * N codes,
+// C * K * F weights, N * F outputs, and a row index up to a block past N.
+template <typename T>
+int launch_forward(const int* codes, const T* w, T* out, int n_cols,
+                   long long n, long long k, long long f, cudaStream_t s) {
+  if (fits_int(n_cols, n) && fits_int(n_cols, k) && fits_int(n_cols * k, f) &&
+      fits_int(n, f) && n + kThreads <= 0x7fffffffLL)
+    return launch_forward_as<T, int>(codes, w, out, n_cols, n, k, f, s);
+  return launch_forward_as<T, long long>(codes, w, out, n_cols, n, k, f, s);
+}
+
 }  // namespace
 
 // Launchers with a plain C interface (bound with ctypes): each launches on
@@ -514,18 +691,13 @@ extern "C" {
 int onehot_wide(const int* codes, const void* w, void* out, int n_cols,
                 long long n, long long k, long long f, int bf16,
                 void* stream) {
-  const unsigned int blocks = (unsigned int)blocks_for(n * f);
-  if (bf16) {
-    onehot_wide_kernel<__nv_bfloat16>
-        <<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-            codes, static_cast<const __nv_bfloat16*>(w),
-            static_cast<__nv_bfloat16*>(out), n_cols, n, k, f);
-  } else {
-    onehot_wide_kernel<float><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        codes, static_cast<const float*>(w), static_cast<float*>(out), n_cols,
-        n, k, f);
-  }
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16)
+    return launch_forward(codes, static_cast<const __nv_bfloat16*>(w),
+                          static_cast<__nv_bfloat16*>(out), n_cols, n, k, f,
+                          s);
+  return launch_forward(codes, static_cast<const float*>(w),
+                        static_cast<float*>(out), n_cols, n, k, f, s);
 }
 
 // Scratch ints onehot_wide_backward needs for this shape (n >= 1).

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on a card: the
 three ADV gathers (the tiled ones on their edge sets too), the predicate
-scan (on its term sets and its layout cases), the masked counts, the one-hot
-wide layer with its gradient (bit for bit against the CPU, and the same in
+scan (on its term sets and its layout cases), the masked counts (on the
+word-major grid too), the one-hot wide layer (on its forward's grid too)
+with its gradient (bit for bit against the CPU, and the same in
 every launch), and the Table 6 path's bit-unpack, counts and single-table
 gather.
 
@@ -182,6 +183,47 @@ def test_masked_counts_kernel_matches_plain_version_on_card(cuda):
                 torch.cuda.synchronize()
                 assert got.is_cuda and torch.equal(got, want)
                 assert hist_ops.LAUNCHES["masked_counts"] == before + 1
+
+
+@pytest.mark.cuda
+def test_masked_counts_word_cases_on_card(cuda):
+    """``edge_cases.masked_counts_word_cases``: every width, k around
+    2**db (the register counters) and the per-warp bins' limit, a column
+    with one code in every row, word offsets off a multiple of 4, masks
+    not 16-byte aligned, n around a word: the word-major kernel equals its
+    plain version, one launch for each n > 0."""
+    for words, off, db, mask, k, n in edge_cases.masked_counts_word_cases(
+            np.random.default_rng(14), cuda):
+        before = hist_ops.LAUNCHES["masked_counts"]
+        got = hist_ops.masked_counts(words, off, db, mask, k, n)
+        want = hist_ref.masked_counts_ref(words, off, db, mask, k, n)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (db, k, off, n, mask.data_ptr() % 16)
+        assert hist_ops.LAUNCHES["masked_counts"] == before + int(n > 0)
+
+
+@pytest.mark.cuda
+def test_onehot_wide_forward_cases_on_card(cuda):
+    """``edge_cases.onehot_wide_forward_cases``: F in {1, 2, 3, 4, 8, 128,
+    129}, C in {0, 1, 2, 8, 33}, N in {0, 1, 33, 1024, 1025}, K in {1, 50,
+    600}, codes -1, K and the int32 ends among them, w float32 and
+    bfloat16, aligned and as a view 4 bytes into a larger tensor: the
+    forward equals its plain version bit for bit, one launch for each
+    nonempty call; and ``edge_cases.WIDE_FWD_PASSES`` (F 1,024 and 1,030,
+    taken in passes)."""
+    rng = np.random.default_rng(15)
+    for codes, w in itertools.chain(
+            edge_cases.onehot_wide_forward_cases(rng, cuda),
+            edge_cases.onehot_wide_forward_cases(
+                rng, cuda, **edge_cases.WIDE_FWD_PASSES)):
+        before = wide_ops.LAUNCHES["onehot_wide"]
+        got = wide_ops.onehot_wide(codes, w)
+        want = wide_ref.onehot_wide_ref(codes, w)
+        torch.cuda.synchronize()
+        assert got.dtype == w.dtype and torch.equal(got, want), (
+            tuple(codes.shape), tuple(w.shape), w.dtype, w.data_ptr() % 16)
+        assert wide_ops.LAUNCHES["onehot_wide"] == \
+            before + int(codes.numel() > 0)
 
 
 @pytest.mark.cuda

@@ -96,6 +96,39 @@ def test_forward_out_of_range_codes_equal_pallas_kernel():
     assert not _port(codes, w).numpy()[7].any()
 
 
+@pytest.mark.parametrize(
+    "f", edge_cases.WIDE_FWD_FS + edge_cases.WIDE_FWD_PASSES["fs"])
+def test_forward_grid_equals_pallas_kernel(f):
+    """``edge_cases.onehot_wide_forward_cases`` at one F (the forward
+    kernels' grid: C up to 33, N up to 1,025, K up to 600, codes -1, K and
+    the int32 ends among them, w aligned and as an offset view; F 1,024
+    and 1,030 on ``WIDE_FWD_PASSES``' grid): float32 equals the Pallas
+    kernel (interpret mode) bit for bit, and bfloat16 equals the kernel
+    rule summed in float32 in ascending c and rounded once. C = 0 gives
+    zeros (the Pallas wrapper takes no empty column axis)."""
+    grid = dict(edge_cases.WIDE_FWD_PASSES, fs=(f,)) \
+        if f in edge_cases.WIDE_FWD_PASSES["fs"] else dict(fs=(f,))
+    for codes, w in edge_cases.onehot_wide_forward_cases(
+            np.random.default_rng(300 + f), "cpu", **grid):
+        c, n = codes.shape
+        k = w.shape[1]
+        got = onehot_wide(codes, w)
+        assert got.dtype == w.dtype and got.shape == (n, f)
+        cn, wn = codes.numpy(), w.float().numpy()
+        rule = np.zeros((n, f), np.float32)
+        for ci in range(c):
+            valid = (cn[ci] >= 0) & (cn[ci] < k)
+            rule = rule + np.where(valid[:, None],
+                                   wn[ci][np.clip(cn[ci], 0, k - 1)], 0)
+        if w.dtype == torch.bfloat16:
+            assert torch.equal(got, torch.from_numpy(rule).to(torch.bfloat16))
+        elif c == 0 or w.storage_offset():
+            assert np.array_equal(got.numpy(), rule)
+        else:
+            want = np.asarray(j_onehot_wide(jnp.asarray(cn), jnp.asarray(wn)))
+            assert np.array_equal(got.numpy(), want), (c, n, k, f)
+
+
 def test_reference_quirks_outside_range():
     """The jnp version the JAX package trains through does NOT follow the
     kernel outside [0, K): -1 wraps to the last row, past K gives NaN. The

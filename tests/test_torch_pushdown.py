@@ -441,6 +441,41 @@ def test_masked_counts_match_reference(seed):
                 assert np.array_equal(got.numpy(), np.asarray(j))
 
 
+def _unpack(words, db, n):
+    """The first n db-bit fields of uint32 ``words`` as int64 (a 32-bit
+    field >= 2**31 stays positive: it is past every k)."""
+    s = 32 // db
+    w = words[:-(-n // s)].astype(np.uint64)
+    fields = (w[:, None] >> (np.arange(s, dtype=np.uint64) * np.uint64(db))
+              ) & np.uint64((1 << db) - 1)
+    return fields.reshape(-1)[:n].astype(np.int64)
+
+
+@pytest.mark.parametrize("db", DBS)
+def test_masked_counts_word_cases_match_reference(db):
+    """``edge_cases.masked_counts_word_cases`` at one width (the word-major
+    kernel's grid: k around 2**db and the per-warp bins' limit, one code in
+    every row, word offsets off a multiple of 4, a mask view one byte into
+    a larger tensor, n around a word): the port equals numpy's bincount of
+    the selected in-range codes and the reference's kernel route on every
+    case, and its split route at n = cap - 1 (each distinct (off, n, k)
+    compiles the split route once)."""
+    cap = edge_cases.MASKED_WORD_CAP
+    for words, off, db_, mask, k, n in edge_cases.masked_counts_word_cases(
+            np.random.default_rng(200 + db), "cpu", dbs=(db,)):
+        got = scan_ops.masked_counts(words, off, db_, mask, k, n)
+        codes = _unpack(words.numpy().view(np.uint32)[off:], db_, n)
+        sel = mask.numpy()[:n] & (codes < k)
+        want = np.bincount(codes[sel], minlength=k)[:k]
+        assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+        jflat, jmask = jnp.asarray(words.numpy()), jnp.asarray(mask.numpy())
+        for use_kernel in (True, False) if n == cap - 1 else (True,):
+            j = jscan.masked_counts(jflat, off, db_, jmask, k, n,
+                                    use_kernel=use_kernel)
+            assert np.array_equal(got.numpy(), np.asarray(j)), (
+                db_, k, off, n, use_kernel)
+
+
 def test_masked_counts_checks_and_negative_codes():
     words = np.array([3, 0x80000001, 1, 2], np.uint32)
     flat = torch.from_numpy(words.view(np.int32).copy())
