@@ -312,8 +312,10 @@ def gather_edge_cases(ec, ops, ref, dev, rng) -> dict[str, float]:
     table, 32-bit fields past 2**31), rows at word boundaries and past the
     stream, negative and oversized int32 codes; for the packed rows also
     ``ec.packed_rows_cases`` (out_dims 1 to 200, 1 to 5,000 rows), for the
-    int32 gather ``ec.multi_cases`` (out_dims 1 to 200, C = 1 to 9, a K = 1
-    table, 1 to 5,000 rows)."""
+    ranges ``ec.packed_range_cases`` (the same plans, 1 to 17 ranges of 32
+    to 4,096 rows, starts duplicated, overlapping and past the stream), for
+    the int32 gather ``ec.multi_cases`` (out_dims 1 to 200, C = 1 to 9, a
+    K = 1 table, 1 to 5,000 rows)."""
     cards, dims, cap = (2, 3, 11, 200, 3000, 1000), (1, 3, 2, 5, 2, 1), 4096
     tables = [rng.standard_normal((k, f)).astype(np.float32)
               for k, f in zip(cards, dims)]
@@ -329,6 +331,16 @@ def gather_edge_cases(ec, ops, ref, dev, rng) -> dict[str, float]:
             ops.adv_gather_packed_rows(flat_c, wmeta_c, fused_c, rows_c),
             ref.adv_gather_packed_rows_ref(flat_c, wmeta_c, fused_c,
                                            rows_c)))
+    range_err = 0.0
+    for flat_c, wmeta_c, fused_c, starts_c, batch_c in ec.packed_range_cases(
+            rng, dev):
+        range_err = max(range_err, check_equal(
+            f"adv_gather_packed edge set out_dim {fused_c.out_dim} "
+            f"{starts_c.numel()} x {batch_c} rows",
+            ops.adv_gather_packed(flat_c, wmeta_c, fused_c, starts_c,
+                                  batch_c),
+            ref.adv_gather_packed_ref(flat_c, wmeta_c, fused_c, starts_c,
+                                      batch_c)))
     multi_err = 0.0
     for fused_c, codes_c in ec.multi_cases(rng, dev):
         multi_err = max(multi_err, check_equal(
@@ -347,10 +359,10 @@ def gather_edge_cases(ec, ops, ref, dev, rng) -> dict[str, float]:
             "adv_gather_packed_rows edge cases",
             ops.adv_gather_packed_rows(flat, wmeta, fused, rows),
             ref.adv_gather_packed_rows_ref(flat, wmeta, fused, rows))),
-        "adv_gather_packed": check_equal(
+        "adv_gather_packed": max(range_err, check_equal(
             "adv_gather_packed edge cases",
             ops.adv_gather_packed(flat, wmeta, fused, starts, 512),
-            ref.adv_gather_packed_ref(flat, wmeta, fused, starts, 512)),
+            ref.adv_gather_packed_ref(flat, wmeta, fused, starts, 512))),
         "gather_fused_parts": max(multi_err, check_equal(
             "gather_fused_parts edge cases",
             ops.gather_fused_parts(fused, codes),
@@ -428,8 +440,11 @@ def main_shape_kernels(ops, ref, ex_p, plan_p, plan_i, n_rows, rng,
     fused = plan_p.fused_tables()
     flat, wmeta = ex_p._flat_words, ex_p._wmeta
     wmeta_np = wmeta.cpu().numpy()
-    tables_bytes = fused.nbytes + 4 * (fused.meta.numel()
-                                       + fused.col_of.numel())
+    # the tables and the addressing every gather reads: a jmeta row an
+    # output column; the packed ones also a wmeta row a column, the rows
+    # gather each table's last row (4 B a column) for its clamp
+    tables_bytes = fused.nbytes + 4 * fused.jmeta.numel()
+    wmeta_bytes = 4 * wmeta.numel()
     out = {}
 
     rows_np = rng.integers(0, n_rows, rows_n).astype(np.int32)
@@ -439,7 +454,8 @@ def main_shape_kernels(ops, ref, ex_p, plan_p, plan_i, n_rows, rng,
         plain=lambda: ref.adv_gather_packed_rows_ref(flat, wmeta, fused,
                                                      rows),
         bytes=4 * rows_n + 4 * words_touched(rows_np, wmeta_np)
-        + tables_bytes + 4 * rows_n * fused.out_dim,
+        + tables_bytes + wmeta_bytes + 4 * fused.n_tables
+        + 4 * rows_n * fused.out_dim,
         shape=f"rows ({rows_n},) int32 vs {flat.numel()} resident words")
 
     start = int(rng.integers(0, n_rows // range_batch)) * range_batch
@@ -451,7 +467,7 @@ def main_shape_kernels(ops, ref, ex_p, plan_p, plan_i, n_rows, rng,
         plain=lambda: ref.adv_gather_packed_ref(flat, wmeta, fused, starts,
                                                 range_batch),
         bytes=4 + 4 * words_touched(range_rows, wmeta_np) + tables_bytes
-        + 4 * range_batch * fused.out_dim,
+        + wmeta_bytes + 4 * range_batch * fused.out_dim,
         shape=f"1 range x {range_batch} rows")
 
     fused_i = plan_i.fused_tables()
@@ -460,7 +476,7 @@ def main_shape_kernels(ops, ref, ex_p, plan_p, plan_i, n_rows, rng,
     out["gather_fused_parts"] = dict(
         call=lambda: ops.gather_fused_parts(fused_i, codes),
         plain=lambda: ref.gather_fused_parts_ref(fused_i, codes),
-        bytes=4 * codes.numel() + tables_bytes
+        bytes=4 * codes.numel() + fused_i.nbytes + 4 * fused_i.jmeta.numel()
         + 4 * codes_n * fused_i.out_dim,
         shape=f"codes {tuple(codes.shape)} int32")
 
@@ -678,8 +694,7 @@ def train_shape_kernels(wide_ops, wide_ref, adv_ops, adv_ref, pipe,
     out = {"gather_fused_parts": dict(
         call=lambda: adv_ops.gather_fused_parts(fused, codes),
         plain=lambda: adv_ref.gather_fused_parts_ref(fused, codes),
-        bytes=4 * codes.numel() + fused.nbytes
-        + 4 * (fused.meta.numel() + fused.col_of.numel())
+        bytes=4 * codes.numel() + fused.nbytes + 4 * fused.jmeta.numel()
         + 4 * batch * fused.out_dim,
         shape=f"codes {tuple(codes.shape)} int32, the train path's deep "
         "features")}

@@ -4,7 +4,7 @@
 // Table 6 featurization path (single_f1_kernel and single_rows_kernel, at
 // the end of this comment). Each of the three writes a (rows, out_dim)
 // float32 feature matrix: output column j belongs to source column
-// c = col_of[j], whose (K_c, F_c) ADV table sits row-major at
+// c = jmeta[j].x, whose (K_c, F_c) ADV table sits row-major at
 // tables[base_c ...] and whose features start at output column col_off_c.
 // Per output element the kernel finds the row's code for column c, clamps
 // it to [0, K_c - 1] and copies one float of that table row.
@@ -34,17 +34,29 @@
 // or code to its store, and the launch itself (a one-element fill takes
 // about 1 us of device time).
 //
-// packed_range_kernel: a warp owns one output row at a time and its lanes
-// stride over the row's out_dim columns, so stores are coalesced and no
-// index division is needed; each lane runs the whole chain (metadata, word,
-// table) for its element.
-//
-// The other two give every output element its own thread, so no lane idles
-// at out_dim 4 or 58 and stores coalesce across row boundaries, and cut the
+// All three give every output element its own thread, so no lane idles at
+// out_dim 4 or 58 and stores coalesce across row boundaries, and cut the
 // chain of dependent loads. Which element a thread takes depends on the
 // thread alone, so it loads its column's addressing when it starts: jmeta
 // row j (table c, row 0's entry of column j, F_c, K_c - 1), one 16-byte
 // load.
+//
+// packed_range_kernel (K ranges of batch rows; the executor's start at a
+// multiple of 32): range k's output is one contiguous batch x out_dim
+// block, blockIdx.y the range, and a thread takes one element of it. Its
+// column's word addressing is wmeta row jmeta[j].x, an 8-byte load that
+// L1 serves: the chain is (start, jmeta) -> wmeta -> word -> table ->
+// store, two metadata loads an element where the warp-per-row layout it
+// replaced made seven (col_of, then wmeta and four table words) and left
+// 6 of 32 lanes idle in a second pass at out_dim 58. What lost in same-run
+// A/Bs (PERF.md §6): the word addressing staged in shared memory a block,
+// the tables staged in shared memory or prefetched into L1 a block, and
+// tiles whose codes go to shared memory before a copy pass, because a
+// barrier plus shared loads cost more than the L2 round trip they save at
+// a few microseconds; four elements a thread with one 16-byte store, at
+// par at the executor's launch and slower at smaller ones, where it leaves
+// too few blocks to fill the SMs; the word addressing handed from lane to
+// lane by __shfl_sync, at par at the executor's launch.
 //
 // multi_kernel (int32 codes, (C, n)): one thread per element, no shared
 // memory and no barrier. Beside jmeta row j the thread loads its row's codes
@@ -100,7 +112,6 @@
 namespace {
 
 constexpr int kThreads = 256;                 // 8 warps
-constexpr int kWarpsPerBlock = kThreads / 32;
 constexpr long long kMaxBlocks = 132LL * 16;  // grid-stride past this
 constexpr int kTileRows = 8;                  // rows per packed-rows tile
 constexpr int kUnroll = 4;                    // tile elements a thread pass
@@ -108,42 +119,6 @@ constexpr int kRowCodes = 8;                  // multi_kernel's codes a row
 constexpr size_t kDefaultShared = 48 * 1024;  // above: opt in per kernel
 constexpr size_t kSharedLimit = 232448;       // 227 KB: a block's maximum
 constexpr long long kSingleMaxBlocks = 0x7fffffffLL;  // one step a thread
-
-// tmeta row c (int32): K_c - 1, base offset of table c in floats, F_c,
-// first output column of table c
-struct TableMeta {
-  int limit, base, dim, col_off;
-};
-
-__device__ __forceinline__ TableMeta table_meta(const int* __restrict__ tmeta,
-                                                int c) {
-  return TableMeta{__ldg(tmeta + 4 * c), __ldg(tmeta + 4 * c + 1),
-                   __ldg(tmeta + 4 * c + 2), __ldg(tmeta + 4 * c + 3)};
-}
-
-// Feature j of table row `code`, the code clamped into the table first.
-// A code read from a 32-bit field >= 2**31 is negative as int32 and clamps
-// to row 0, as the TPU kernel's astype(int32) + clip did.
-__device__ __forceinline__ float lookup(const float* __restrict__ tables,
-                                        const TableMeta& m, int code, int j) {
-  code = code < 0 ? 0 : (code > m.limit ? m.limit : code);
-  return __ldg(tables + (long long)m.base + (long long)code * m.dim +
-               (j - m.col_off));
-}
-
-// One output row from packed words: lanes stride over the columns.
-__device__ __forceinline__ void packed_row(
-    long long r, float* __restrict__ out_row, int out_dim, int lane,
-    const uint32_t* __restrict__ words, long long n_words,
-    const int* __restrict__ wmeta, const int* __restrict__ tmeta,
-    const int* __restrict__ col_of, const float* __restrict__ tables) {
-  for (int j = lane; j < out_dim; j += 32) {
-    const int c = __ldg(col_of + j);
-    const int code = packed_code(words, n_words, __ldg(wmeta + 2 * c),
-                                 __ldg(wmeta + 2 * c + 1), r);
-    out_row[j] = lookup(tables, table_meta(tmeta, c), code, j);
-  }
-}
 
 // Dynamic shared memory of packed_rows_kernel: a tile's codes (kTileRows x
 // C int32).
@@ -255,24 +230,29 @@ __global__ void __launch_bounds__(kThreads) packed_rows_kernel(
   }
 }
 
-// blockIdx.y selects the range: rows starts[k] .. starts[k] + batch - 1
-// land in output rows k * batch .. k * batch + batch - 1. Neighbouring
-// warps take neighbouring rows, so their word loads fall in the same
-// cache lines.
+// The range gather (see the top of the file). Range k's output is one
+// contiguous batch x out_dim block, so its element e is row e / out_dim,
+// column e % out_dim; kNarrow (batch x out_dim < 2**32) divides in 32 bits.
+template <bool kNarrow>
 __global__ void __launch_bounds__(kThreads) packed_range_kernel(
     const int* __restrict__ starts, int batch,
     const uint32_t* __restrict__ words, long long n_words,
-    const int* __restrict__ wmeta, const int* __restrict__ tmeta,
-    const int* __restrict__ col_of, const float* __restrict__ tables,
-    float* __restrict__ out, int out_dim) {
-  const int lane = threadIdx.x & 31;
-  const long long k = blockIdx.y;
-  const long long start = __ldg(starts + k);
-  const long long stride = (long long)gridDim.x * kWarpsPerBlock;
-  for (long long i = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-       i < batch; i += stride) {
-    packed_row(start + i, out + (k * batch + i) * out_dim, out_dim, lane,
-               words, n_words, wmeta, tmeta, col_of, tables);
+    const int2* __restrict__ wmeta, const int4* __restrict__ jmeta,
+    const float* __restrict__ tables, float* __restrict__ out, int out_dim) {
+  const long long total = (long long)batch * out_dim;
+  const long long start = __ldg(starts + blockIdx.y);
+  float* __restrict__ out_k = out + (long long)blockIdx.y * total;
+  for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
+       e < total; e += (long long)gridDim.x * kThreads) {
+    const long long i = kNarrow ? (long long)((uint32_t)e / (uint32_t)out_dim)
+                                : e / out_dim;
+    const int4 jm = __ldg(jmeta + (int)(e - i * out_dim));
+    const int2 wm = __ldg(wmeta + jm.x);
+    // fuse_tables keeps every table entry's index below 2**31
+    out_k[e] = __ldg(tables + jm.y +
+                     clamp_code(packed_code(words, n_words, wm.x, wm.y,
+                                            start + i),
+                                jm.w) * jm.z);
   }
 }
 
@@ -416,12 +396,6 @@ void launch_single(const int* codes, long long n, int limit, long long dim,
   }
 }
 
-unsigned int blocks_for(long long rows) {
-  long long b = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (b > kMaxBlocks) b = kMaxBlocks;
-  return (unsigned int)(b < 1 ? 1 : b);
-}
-
 }  // namespace
 
 // Launchers with a plain C interface (bound with ctypes). Each launches on
@@ -456,12 +430,21 @@ int adv_gather_packed_rows(const int* rows, long long n, const int* words,
 
 int adv_gather_packed(const int* starts, int n_ranges, int batch,
                       const int* words, long long n_words, const int* wmeta,
-                      const int* tmeta, const int* col_of, const float* tables,
-                      float* out, int out_dim, void* stream) {
-  dim3 grid(blocks_for(batch), (unsigned int)n_ranges);
-  packed_range_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      starts, batch, reinterpret_cast<const uint32_t*>(words), n_words, wmeta,
-      tmeta, col_of, tables, out, out_dim);
+                      const int* jmeta, const float* tables, float* out,
+                      int out_dim, void* stream) {
+  const long long total = (long long)batch * out_dim;
+  long long blocks = (total + kThreads - 1) / kThreads;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  const dim3 grid((unsigned int)blocks, (unsigned int)n_ranges);
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(words);
+  const int2* wm = reinterpret_cast<const int2*>(wmeta);
+  const int4* jm = reinterpret_cast<const int4*>(jmeta);
+  if (total <= 0xffffffffLL)   // 32-bit division suffices
+    packed_range_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        starts, batch, w, n_words, wm, jm, tables, out, out_dim);
+  else
+    packed_range_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        starts, batch, w, n_words, wm, jm, tables, out, out_dim);
   return (int)cudaGetLastError();
 }
 

@@ -42,8 +42,7 @@ _P, _I64, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _SIGNATURES = {
     "adv_gather_packed_rows": ([_P, _I64, _P, _I64, _P, _P, _P, _P, _P, _I,
                                 _I, _P], _I),
-    "adv_gather_packed": ([_P, _I, _I, _P, _I64, _P, _P, _P, _P, _P, _I, _P],
-                          _I),
+    "adv_gather_packed": ([_P, _I, _I, _P, _I64, _P, _P, _P, _P, _I, _P], _I),
     "gather_fused_parts": ([_P, _I64, _P, _P, _P, _I, _I, _P], _I),
     "adv_gather": ([_P, _I64, _P, _I, _I64, _I, _P, _P], _I),
     "adv_gather_error_string": ([_I], ctypes.c_char_p),
@@ -225,9 +224,9 @@ def adv_gather_packed(flat_words: torch.Tensor, wmeta: torch.Tensor,
     lib = _lib()
     raise_on(lib.adv_gather_packed(
         starts.data_ptr(), k, batch, flat_words.data_ptr(),
-        flat_words.numel(), wmeta.data_ptr(), fused.meta.data_ptr(),
-        fused.col_of.data_ptr(), fused.tables.data_ptr(), out.data_ptr(),
-        fused.out_dim, stream_ptr(device)),
+        flat_words.numel(), wmeta.data_ptr(), fused.jmeta.data_ptr(),
+        fused.tables.data_ptr(), out.data_ptr(), fused.out_dim,
+        stream_ptr(device)),
         lib.adv_gather_error_string, "adv_gather_packed")
     LAUNCHES["adv_gather_packed"] += 1
     return out

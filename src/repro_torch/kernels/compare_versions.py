@@ -16,7 +16,8 @@ times it with ``chip_smoke.py``'s timers (this checkout's): back to back
 after a 128 MiB L2 flush (the median of 50 single launches); then its
 device time per call from ``torch.profiler`` (the kernels' and memsets'
 durations over 100 calls, without the gaps between launches), beside that
-of a one-element fill, the least a launch takes. ``--only`` keeps the
+of a fill of its output (``zero_``, the least time to write those bytes)
+and of a one-element fill, the least a launch takes. ``--only`` keeps the
 cases whose first word (the kernel's wrapper) is one of its words. The
 shapes:
 
@@ -28,6 +29,11 @@ shapes:
 - the packed-rows gather: 2,048 rows (the serving path's launch) against
   the same stream and the serving plan's tables, 72 x 2, 50 x 50, 230 x 2
   and 4 x 4 (out_dim 58);
+- the range gather at :data:`RANGE_SHAPES`, against the same stream and
+  tables: 1 range x 4,096 rows (``FeatureExecutor.batches(4096)``'s
+  launch, out_dim 58), and two synthetic shapes that no path launches: 16
+  ranges x 512 rows at random aligned starts (out_dim 58), and 1 range x
+  1,024 rows of the 72 x 2 and 230 x 2 tables (out_dim 4);
 - the int32 gather: (4, 512) codes against the same tables (the int32
   service's launch) and (2, 1,024) codes against 72 x 2 and 230 x 2
   (out_dim 4, the train step's);
@@ -61,6 +67,10 @@ import sys
 from pathlib import Path
 
 THIS = Path(__file__).resolve().parents[3]       # this checkout's root
+# (ranges, rows a range, the plan's tables) of the range gather: the
+# iterator's batch, then two synthetic shapes (16 ranges; out_dim 4)
+RANGE_SHAPES = ((1, 4096, (0, 1, 2, 3)), (16, 512, (0, 1, 2, 3)),
+                (1, 1024, (0, 2)))
 # (C, N, K, F) of the wide forward: the train shape and the JAX sweep's
 FORWARD_SHAPES = ((2, 1024, 50, 1), (2, 256, 600, 128))
 # (C, N, K, F) of the wide gradient
@@ -123,6 +133,20 @@ def _cases(rng, dev):
             rows.cpu()), "equal")
     flat_cpu, wmeta_cpu = flat.cpu(), wmeta.cpu()
     dbs_cpu = wmeta_cpu[:, 1].tolist()
+    for k, batch, plan in RANGE_SHAPES:
+        fused_r = adv_ops.fuse_tables([tables[c] for c in plan], dev)
+        wmeta_r = wmeta[list(plan)].contiguous()
+        starts = torch.from_numpy(rng.integers(0, n_rows // batch, k)
+                                  .astype(np.int32) * batch).to(dev)
+        cases[f"adv_gather_packed {k} x {batch} out_dim {fused_r.out_dim}"] = (
+            lambda fused_r=fused_r, wmeta_r=wmeta_r, starts=starts,
+            batch=batch: adv_ops.adv_gather_packed(flat, wmeta_r, fused_r,
+                                                   starts, batch),
+            lambda plan=plan, wmeta_r=wmeta_r, starts=starts, batch=batch:
+                adv_ref.adv_gather_packed_ref(
+                    flat_cpu, wmeta_r.cpu(), adv_ops.fuse_tables(
+                        [tables[c] for c in plan], "cpu"), starts.cpu(),
+                    batch), "equal")
 
     def lut(size, on):
         return (np.arange(size) < on)[rng.permutation(size)].astype(np.int32)
@@ -212,6 +236,7 @@ def run_turn(tree: Path, seed: int, only) -> None:
         got = call()
         torch.cuda.synchronize()
         want = plain()
+        fill = torch.empty_like(got[0] if isinstance(got, tuple) else got)
         if isinstance(got, tuple):       # the scan's (mask, count)
             equal = torch.equal(got[0].cpu(), want[0]) and \
                 int(got[1]) == int(want[1])
@@ -229,7 +254,8 @@ def run_turn(tree: Path, seed: int, only) -> None:
             "within_bound": within, "digest": digest.hexdigest(),
             "ms": timers.time_ms(call, iters=50, reps=15, queue_ahead=True),
             "cold_ms": timers.time_cold_ms(call, flush, launches=50),
-            "device_us": device_us(call)}), flush=True)
+            "device_us": device_us(call),
+            "fill_us": device_us(fill.zero_)}), flush=True)
     one = torch.zeros(1, device=dev)
     print(json.dumps({"kernel": "one-element fill",
                       "device_us": device_us(one.zero_)}), flush=True)
@@ -278,7 +304,8 @@ def main() -> None:
             print(f"{name} turn {turn} {label}: {r['ms']:.6f} ms back to "
                   f"back, {r['cold_ms']:.6f} ms after an L2 flush, "
                   f"{r['device_us']:.3f} us of device time a call "
-                  f"(torch.profiler)", flush=True)
+                  f"(torch.profiler; a fill of its output "
+                  f"{r['fill_us']:.3f} us)", flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())

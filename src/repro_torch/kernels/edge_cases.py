@@ -1,12 +1,12 @@
 """Edge-case inputs that hold the CUDA kernels against their plain versions
 on a card: a random packed stream at every device width, the packed-rows
-gather's plans and row counts, the int32 multi-table gather's plans and
-row counts, the scan's term sets and its layout cases (word offsets off
-every multiple of 4, every width under both kinds, ragged n), the masked
-counts' cases (and the word-major kernel's grid), the one-hot wide
-layer's grid (with a shape for its gradient's grouped route) and its
-forward's grid, and the Table 6 path's bit-unpack, counts and
-single-table gather cases.
+gather's plans and row counts, the range gather's ranges over the same
+plans, the int32 multi-table gather's plans and row counts, the scan's
+term sets and its layout cases (word offsets off every multiple of 4,
+every width under both kinds, ragged n), the masked counts' cases (and the
+word-major kernel's grid), the one-hot wide layer's grid (with a shape for
+its gradient's grouped route) and its forward's grid, and the Table 6
+path's bit-unpack, counts and single-table gather cases.
 
 ``chip_smoke.py`` and ``tests/test_torch_kernels_cuda.py`` both draw their
 edge sets from here, so the two stay one set. Nothing here launches a
@@ -84,6 +84,58 @@ def packed_rows_cases(rng: np.random.Generator, device, cap: int = 4096):
             rows[:min(n, ends.size)] = ends[:n]
             yield flat, sub, fused, torch.from_numpy(
                 rows.astype(np.int32)).to(device)
+
+
+# the range gather's plans: the packed-rows gather's, and 40 tables over
+# the six stream columns (out_dim 60), several tables to a column; its
+# range counts and rows a range, over a random_stream of
+# PACKED_RANGE_CAP rows: a 4,096-row range has two aligned places in it
+PACKED_RANGE_PLANS = PACKED_ROWS_PLANS + (
+    tuple((c % 6, (2, 3, 11, 20, 5, 7)[c % 6], 1 + c % 2)
+          for c in range(40)),)
+PACKED_RANGE_KS = (1, 3, 17)
+PACKED_RANGE_BATCHES = (32, 96, 4096)
+PACKED_RANGE_CAP = 8192
+
+
+def packed_range_starts(rng: np.random.Generator, k: int, batch: int,
+                        cap: int = PACKED_RANGE_CAP) -> list[int]:
+    """``k`` range starts for ``batch``-row ranges over ``cap`` rows: the
+    last aligned range inside the stream (k = 1); with it 0 and a range
+    reaching 32 rows past the stream's end, where the word index clamps
+    (k = 3); and for k = 17 also a duplicated start, ranges overlapping it
+    (aligned, and 7 rows on), a negative start (its first rows read row
+    0) and random aligned ones."""
+    last = cap - batch
+    if k == 1:
+        return [last]
+    if k == 3:
+        return [0, last + 32, last]
+    s = int(rng.integers(0, last // 32 + 1)) * 32
+    rest = rng.integers(0, cap // 32, k - 8) * 32
+    return [0, last, last + 32, s, s, s + 32, s + 7, -32, *rest.tolist()]
+
+
+def packed_range_cases(rng: np.random.Generator, device,
+                       cap: int = PACKED_RANGE_CAP):
+    """Yield ``(flat, wmeta, fused, starts, batch)`` for the range gather:
+    each plan of :data:`PACKED_RANGE_PLANS` (out_dims 1, 31, 33, 58, 200
+    and 60 over 40 tables) over one :func:`random_stream` (codes past every
+    table, 32-bit fields past 2**31), at each batch of
+    :data:`PACKED_RANGE_BATCHES` and each range count of
+    :data:`PACKED_RANGE_KS`, the starts of :func:`packed_range_starts`."""
+    flat, wmeta, _ = random_stream(rng, cap, device)
+    for plan in PACKED_RANGE_PLANS:
+        tables = [rng.standard_normal((k, f)).astype(np.float32)
+                  for _, k, f in plan]
+        fused = ops.fuse_tables(tables, device)
+        sub = wmeta[torch.tensor([col for col, _, _ in plan],
+                                 device=device)].contiguous()
+        for batch in PACKED_RANGE_BATCHES:
+            for k in PACKED_RANGE_KS:
+                starts = packed_range_starts(rng, k, batch, cap)
+                yield flat, sub, fused, torch.tensor(
+                    starts, dtype=torch.int32, device=device), batch
 
 
 # the int32 multi-table gather's plans, (K, F) per table: out_dims 1 (C =

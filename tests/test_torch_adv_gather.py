@@ -201,6 +201,58 @@ def test_packed_rows_edge_sets_match_pallas(plan):
         assert np.array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("plan", range(len(edge_cases.PACKED_RANGE_PLANS)))
+@pytest.mark.parametrize("batch", edge_cases.PACKED_RANGE_BATCHES)
+def test_packed_range_edge_sets_match_pallas(plan, batch):
+    """``edge_cases.packed_range_cases`` (the card's edge sets for the range
+    gather): out_dims 1, 31, 33, 58, 200 and 60 (over 40 tables), 1, 3 and
+    17 ranges of ``batch`` rows. Every range that starts on a word boundary
+    and ends inside the stream equals the reference's packed range kernel
+    (interpret mode, its preconditions) bit for bit; every row of the
+    other ranges (unaligned, negative, past the stream's end) equals the
+    reference's packed-rows kernel at that row (a negative row read as row
+    0), up to the stream's end. Past it the reference leaves the words
+    undefined and the port clamps
+    (``test_word_index_clamps_to_stream_end``)."""
+    n_b, n_k = len(edge_cases.PACKED_RANGE_BATCHES), len(
+        edge_cases.PACKED_RANGE_KS)
+    first = (plan * n_b + edge_cases.PACKED_RANGE_BATCHES.index(batch)) * n_k
+    cases = list(edge_cases.packed_range_cases(np.random.default_rng(19),
+                                               "cpu"))[first:first + n_k]
+    cap = edge_cases.PACKED_RANGE_CAP
+    for (flat, wmeta, fused, starts, b), k in zip(cases,
+                                                   edge_cases.PACKED_RANGE_KS):
+        assert b == batch and starts.numel() == k
+        offs, dbs = wmeta[:, 0].tolist(), wmeta[:, 1].tolist()
+        words = flat.numpy().view(np.uint32)
+        tables = [fused.tables[o:o + (lim + 1) * d].view(lim + 1, d).numpy()
+                  for lim, o, d, _ in fused.meta.tolist()]
+        jf = jops.fuse_tables(tables)
+        got = ops.adv_gather_packed(flat, wmeta, fused, starts, batch)
+        assert got.shape == (k * batch, fused.out_dim)
+        got = got.numpy().reshape(k, batch, -1)
+        starts = starts.numpy()
+        aligned = (starts >= 0) & (starts % 32 == 0) & (starts + batch <= cap)
+        assert aligned.any() and (k == 1 or not aligned.all())
+        for st in np.unique(starts[aligned]):
+            want = np.asarray(jops.adv_gather_packed(
+                [jnp.asarray(words[o + st * db // 32:])
+                 for o, db in zip(offs, dbs)], dbs, jf.table,
+                jf.row_offsets, jf.card_limits, batch, jf.out_dim,
+                interpret=True))
+            for r in np.flatnonzero(starts == st):
+                assert np.array_equal(got[r], want)
+        rows = np.maximum(starts[~aligned, None] + np.arange(batch), 0)
+        inside = rows < cap
+        if not inside.any():
+            continue
+        want = np.asarray(jops.adv_gather_packed_rows(
+            jnp.asarray(words), offs, dbs, jf.table, jf.row_offsets,
+            jf.card_limits, jnp.asarray(rows[inside].astype(np.int32)),
+            jf.out_dim, interpret=True))
+        assert np.array_equal(got[~aligned][inside], want)
+
+
 @pytest.mark.parametrize("plan", range(len(edge_cases.MULTI_PLANS)))
 @pytest.mark.parametrize("n", edge_cases.MULTI_NS)
 def test_multi_edge_sets_match_pallas(plan, n):

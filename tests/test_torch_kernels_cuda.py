@@ -1,5 +1,5 @@
 """The CUDA kernels against their plain PyTorch versions, on a card: the
-three ADV gathers (the tiled ones on their edge sets too), the predicate
+three ADV gathers (each on its edge set too), the predicate
 scan (on its term sets and its layout cases), the masked counts (on the
 word-major grid too), the one-hot wide layer (on its forward's grid too)
 with its gradient (bit for bit against the CPU, and the same in
@@ -95,6 +95,24 @@ def test_packed_rows_kernel_matches_plain_version_on_card(cuda):
         torch.cuda.synchronize()
         assert torch.equal(got, want), (fused.out_dim, rows.numel())
         assert ops.LAUNCHES["adv_gather_packed_rows"] == before + 1
+
+
+@pytest.mark.cuda
+def test_packed_range_kernel_matches_plain_version_on_card(cuda):
+    """``edge_cases.packed_range_cases``: out_dims 1, 31, 33, 58, 200 and
+    60 (over 40 tables), 1, 3 and 17 ranges of 32, 96 and 4,096 rows,
+    starts at 0, at the last aligned range, past the stream's end,
+    duplicated, overlapping, unaligned and negative: the kernel equals its
+    plain version bit for bit, one launch each."""
+    for flat, wmeta, fused, starts, batch in edge_cases.packed_range_cases(
+            np.random.default_rng(17), cuda):
+        before = ops.LAUNCHES["adv_gather_packed"]
+        got = ops.adv_gather_packed(flat, wmeta, fused, starts, batch)
+        want = ref.adv_gather_packed_ref(flat, wmeta, fused, starts, batch)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (fused.out_dim, batch,
+                                        starts.tolist())
+        assert ops.LAUNCHES["adv_gather_packed"] == before + 1
 
 
 @pytest.mark.cuda
