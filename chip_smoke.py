@@ -56,6 +56,29 @@ checkout's sources (into build/torch_ext/) and needs one card. Phases:
    Sampled results (>= 10,000 rows each) must equal the plan's numpy
    reference ``host_features`` bit for bit, and every gather kernel must
    have launched.
+3b. front door — launch counts set to 0 again; the workload of
+   ``bench_featurize.py``'s ``_frontend_serve_comparison`` on the same
+   packed table (one shard; the bench has 128,000 rows): a
+   ``FeatureFrontend`` with its three request classes (interactive
+   priority 3, coalesce 1; batch priority 2, coalesce 8, linger 1 ms;
+   background priority 1, aging 0.05 s, window 16 + 16) takes a
+   saturating burst of 360 batch, 120 interactive and 8 background
+   64-row Zipf(1.2) blocks; a classless service of the same shape takes
+   the same mix as the FIFO control. One warm-up each, then five timed
+   runs each, in turns: per-class p50/p99, the FIFO p99, rows/s,
+   launches and the kernel's share of the wall. Then the bench's
+   admission probe (paused, 64 background submits: some must be
+   ``Overloaded``, every admitted one must resolve), three
+   ``submit(where=P1, klass="batch")`` among interactive requests, and a
+   chaos run (every 5th batch launch fails, every 7th launch stalls 2
+   ms; ``FaultPolicy(max_retries=3)``): availability over admitted work
+   1.0 and ``retries == faults_injected > 0``. Every run holds every
+   second result (>= 10,000 rows) against ``host_features`` bit for bit,
+   P1's results whole against the host mask's rows; any failed ticket
+   fails the phase (naming a cause that is not an injected fault), as
+   does a retry in a fault-free run. Last, one burst through a front door
+   over the int32 plan. The packed rows gather, the int32 gather and the
+   scan must have launched.
 4. pushdown path — launch counts set to 0 again; on the same packed plan
    and executor: count_where, filtered_rows, batch_where, groupby_where and
    agg_where of two predicates (AND and OR; range and LUT terms), and a
@@ -830,15 +853,253 @@ def busy_share(kernels: dict, name: str, st: dict) -> float:
     return st["launches"] * kernels[name]["ms"] / (st["wall_s"] * 1e3)
 
 
-def check_sample(name: str, plan, sampled) -> int:
+def check_sample(name: str, plan, sampled, least: int = 10_000) -> int:
     rows = sum(r.size for r, _ in sampled)
-    if rows < 10_000:
+    if rows < least:
         fail(f"{name}: only {rows} rows sampled")
     for r, got in sampled:
         if got.shape != (r.size, plan.out_dim) or \
                 not np.array_equal(got, plan.host_features(r)):
             fail(f"{name}: served features differ from host_features")
     return rows
+
+
+# -- phase 3b -----------------------------------------------------------------
+
+FRONT_RSZ = 64      # bench_featurize.py:_frontend_serve_comparison's rsz
+
+
+def front_door_classes(RequestClass) -> tuple:
+    """The bench's class mix (bench_featurize.py:765-774)."""
+    return (RequestClass("interactive", priority=3, coalesce=1,
+                         linger_us=0.0, max_inflight=512, queue_depth=512),
+            RequestClass("batch", priority=2, coalesce=8, linger_us=1000.0,
+                         max_inflight=1024, queue_depth=1024),
+            RequestClass("background", priority=1, aging_s=0.05,
+                         max_inflight=16, queue_depth=16))
+
+
+def front_door_requests(rng: np.random.Generator, n_rows: int):
+    """The bench's Zipf(1.2) 64-row 'user blocks' on 32-row boundaries:
+    360 batch, 120 interactive and 8 background requests."""
+    blocks = (n_rows - FRONT_RSZ) // 32
+
+    def zipf(count):
+        ranks = np.minimum(rng.zipf(1.2, count), blocks) - 1
+        return [np.arange(s, s + FRONT_RSZ) for s in ranks * 32]
+    return zipf(360), zipf(120), zipf(8)
+
+
+def front_door_burst(fe, reqs_batch, reqs_inter, reqs_bg):
+    """The bench's saturating burst through the front door (interactive
+    one per three batch, background every len(batch) // 8), then collect.
+    Returns the wall and each request's (rows, outcome)."""
+    n_inter, n_bg = len(reqs_inter), len(reqs_bg)
+    bg_step = len(reqs_batch) // n_bg
+    sent, k = [], 0
+    t0 = time.perf_counter()
+    for i, r in enumerate(reqs_batch):
+        sent.append((r, fe.submit(r, klass="batch", tenant="analytics")))
+        if i % 3 == 0 and k < n_inter:
+            sent.append((reqs_inter[k], fe.submit(
+                reqs_inter[k], klass="interactive", tenant="app")))
+            k += 1
+        if i % bg_step == 0 and i // bg_step < n_bg:
+            r_bg = reqs_bg[i // bg_step]
+            sent.append((r_bg, fe.submit(r_bg, klass="background",
+                                         tenant="scavenger")))
+    for r in reqs_inter[k:]:
+        sent.append((r, fe.submit(r, klass="interactive", tenant="app")))
+    out = fe.collect(timeout=120)
+    return time.perf_counter() - t0, [(r, out[t]) for r, t in sent]
+
+
+def fifo_burst(svc, reqs_batch, reqs_inter):
+    """The bench's FIFO control: the same mix classless through a service
+    of the same shape, then collect."""
+    sent = []
+    t0 = time.perf_counter()
+    for i, r in enumerate(reqs_batch):
+        sent.append((r, svc.submit(r)))
+        if i % 3 == 0:
+            r_in = reqs_inter[i // 3 % len(reqs_inter)]
+            sent.append((r_in, svc.submit(r_in)))
+    out = svc.collect(timeout=120)
+    return time.perf_counter() - t0, [(r, out[t]) for r, t in sent]
+
+
+def check_outcomes(name: str, plan, outcomes, every: int, InjectedFault,
+                   least: int = 10_000) -> int:
+    """Fail on any ticket that resolved to an error (naming its cause: an
+    error not injected is a real fault, never to be served), then hold
+    every ``every``-th result against ``host_features`` bit for bit;
+    returns the rows checked (``least`` required)."""
+    for _, got in outcomes:
+        if isinstance(got, Exception):
+            cause = got.__cause__
+            real = "" if isinstance(cause, InjectedFault) else \
+                " (not an injected fault)"
+            fail(f"{name}: a ticket failed: {got!r}, cause {cause!r}{real}")
+    return check_sample(name, plan, outcomes[::every], least)
+
+
+def front_door_path(S, ops, scan_ops, ex_p, plan, plan_i, p1, rows_p1, rng,
+                    counters):
+    """Phase 3b: bench_featurize.py's front-door workload on the resident
+    serving table, the FIFO control beside it, the admission probe, P1
+    through the front door, a chaos pass, and one burst over the int32
+    plan. Returns the launches."""
+    n_rows = plan.n_rows
+    reqs_batch, reqs_inter, reqs_bg = front_door_requests(rng, n_rows)
+    n_req = len(reqs_batch) + len(reqs_inter) + len(reqs_bg)
+    svc_kw = dict(buckets=(FRONT_RSZ,), coalesce=8, linger_us=1000.0)
+    # the kernel at this path's launch: 8 x 64 rows
+    fused = plan.fused_tables()
+    launch_rows = torch.from_numpy(rng.integers(
+        0, n_rows, 8 * FRONT_RSZ).astype(np.int32)).to(plan.device)
+    k_ms = time_ms(lambda: ops.adv_gather_packed_rows(
+        ex_p._flat_words, ex_p._wmeta, fused, launch_rows),
+        iters=50, reps=15, queue_ahead=True)
+    for counter in counters:
+        counter.reset_launches()
+
+    fe = S.FeatureFrontend.for_plan(
+        plan, classes=front_door_classes(S.RequestClass), **svc_kw)
+    svc = fe.service
+    fifo = S.FeatureService(plan, **svc_kw)
+    checked = []
+    for run in (lambda: fifo_burst(fifo, reqs_batch, reqs_inter),
+                lambda: front_door_burst(fe, reqs_batch, reqs_inter,
+                                         reqs_bg)):
+        _, outcomes = run()                             # warm-up
+        checked.append(check_outcomes("front door warm-up", plan, outcomes,
+                                      2, S.InjectedFault))
+    svc.reset_latency_window()
+    fifo.reset_latency_window()
+    launches0 = svc.stats["launches"]
+    walls = {"fifo": [], "front": []}
+    for _ in range(5):
+        for key, run in (("fifo", lambda: fifo_burst(fifo, reqs_batch,
+                                                     reqs_inter)),
+                         ("front", lambda: front_door_burst(
+                             fe, reqs_batch, reqs_inter, reqs_bg))):
+            wall, outcomes = run()
+            walls[key].append(wall)
+            checked.append(check_outcomes(f"{key} run", plan, outcomes, 2,
+                                          S.InjectedFault))
+    fe_launches = svc.stats["launches"] - launches0
+    p = {k: (svc.latency_percentile(50, k), svc.latency_percentile(99, k))
+         for k in ("interactive", "batch", "background")}
+    fifo_p99 = fifo.latency_percentile(99)
+    cs = svc.class_stats()
+    for name, (p50, p99) in p.items():
+        log(f"  {name}: p50 {p50 * 1e3:.4f} ms, p99 {p99 * 1e3:.4f} ms over "
+            f"{cs[name]['samples']} tickets")
+    wall_fe = statistics.median(walls["front"])
+    wall_fifo = statistics.median(walls["fifo"])
+    rows_fe = n_req * FRONT_RSZ
+    rows_fifo = (len(reqs_batch) + -(-len(reqs_batch) // 3)) * FRONT_RSZ
+    log(f"  p99 interactive / batch {p['interactive'][1] / p['batch'][1]:.4f}"
+        f"; FIFO control p99 {fifo_p99 * 1e3:.4f} ms (p99 interactive / "
+        f"FIFO {p['interactive'][1] / fifo_p99:.4f})")
+    log(f"  front door: {n_req} requests a run, median wall "
+        f"{wall_fe:.6f} s of {[round(w, 6) for w in walls['front']]} = "
+        f"{rows_fe / wall_fe:.1f} rows/s, {fe_launches} launches in 5 "
+        f"runs; {k_ms:.6f} ms a launch of the kernel at 8 x 64 rows, "
+        f"{fe_launches * k_ms / (sum(walls['front']) * 1e3):.6f} of the "
+        "wall in the kernel")
+    log(f"  FIFO control: {rows_fifo // FRONT_RSZ} requests a run, median "
+        f"wall {wall_fifo:.6f} s of {[round(w, 6) for w in walls['fifo']]} "
+        f"= {rows_fifo / wall_fifo:.1f} rows/s, "
+        f"{fifo.stats['launches']} launches in 6 runs")
+    fifo.shutdown()
+    # admission probe (the bench's): hold the pump, overflow background
+    svc.pause()
+    overloaded, admitted, hint = 0, [], 0.0
+    for _ in range(64):
+        try:
+            admitted.append(fe.submit(reqs_bg[0], klass="background",
+                                      tenant="scavenger"))
+        except S.Overloaded as e:
+            overloaded += 1
+            hint = e.retry_after_s
+    svc.resume()
+    out = fe.collect(timeout=120)
+    probe = [(reqs_bg[0], out[t]) for t in admitted]
+    check_outcomes("admission probe", plan, probe, 1, S.InjectedFault,
+                   least=1)
+    if overloaded < 1:
+        fail("the admission probe raised no Overloaded")
+    # P1 through the front door, among interactive requests
+    sent = []
+    for i, r in enumerate(reqs_inter[:6]):
+        sent.append((r, fe.submit(r, klass="interactive")))
+        if i % 2:
+            sent.append((rows_p1, fe.submit(where=p1, klass="batch")))
+    out = fe.collect(timeout=120)
+    filtered = [(r, out[t]) for r, t in sent]
+    checked.append(check_outcomes("front door where=P1", plan, filtered, 1,
+                                  S.InjectedFault))
+    st = fe.stats()
+    fe.shutdown()
+    bg_done = cs["background"]["samples"]
+    log(f"  availability_admitted {st['availability_admitted']}, "
+        f"background completed {bg_done} in the 5 timed runs, {overloaded} "
+        f"of 64 "
+        f"probe submits Overloaded (retry after {hint * 1e3:.4f} ms), "
+        f"{len(admitted)} admitted and resolved; 3 x submit(where=P1, "
+        f"klass='batch') of {rows_p1.size} rows; failed_tickets "
+        f"{svc.stats['failed_tickets']}, retries {svc.stats['retries']}")
+    if st["availability_admitted"] != 1.0 or svc.stats["failed_tickets"] \
+            or svc.stats["retries"]:
+        fail("the fault-free front door failed or retried a ticket")
+    if bg_done < 5 * len(reqs_bg):
+        fail(f"background completed {bg_done} of {5 * len(reqs_bg)}")
+
+    # chaos: every 5th batch launch fails, every 7th other launch stalls
+    inj = (S.FaultInjector().fail_launches(1 << 30, every=5, klass="batch")
+           .stall_launches(0.002, 1 << 30, every=7))
+    fe = S.FeatureFrontend.for_plan(
+        plan, classes=front_door_classes(S.RequestClass),
+        faults=inj, fault_policy=S.FaultPolicy(max_retries=3), **svc_kw)
+    wall, outcomes = front_door_burst(fe, reqs_batch, reqs_inter, reqs_bg)
+    checked.append(check_outcomes("chaos run", plan, outcomes, 2,
+                                  S.InjectedFault))
+    st, cst = fe.stats(), dict(fe.service.stats)
+    fe.shutdown()
+    log(f"  chaos: {inj.faults_injected} injected faults, "
+        f"{inj.stalls_injected} stalls of 2 ms, retries {cst['retries']}, "
+        f"failed_tickets {cst['failed_tickets']}, availability_admitted "
+        f"{st['availability_admitted']}, wall {wall:.6f} s; "
+        f"{min(checked)}-{max(checked)} sampled rows a run bit-exact")
+    if st["availability_admitted"] != 1.0 or cst["failed_tickets"] \
+            or not 0 < cst["retries"] == inj.faults_injected \
+            or not inj.stalls_injected:
+        fail("the chaos run did not retry every injected fault into a "
+             "served result")
+    # the same burst over the int32 plan (singleton launches)
+    fe = S.FeatureFrontend.for_plan(
+        plan_i, classes=front_door_classes(S.RequestClass), **svc_kw)
+    wall, outcomes = front_door_burst(fe, reqs_batch, reqs_inter, reqs_bg)
+    checked = check_outcomes("int32 front door", plan_i, outcomes, 2,
+                             S.InjectedFault)
+    st, ist = fe.stats(), dict(fe.service.stats)
+    fe.shutdown()
+    log(f"  int32 plan: {ist['launches']} launches, wall {wall:.6f} s = "
+        f"{n_req * FRONT_RSZ / wall:.1f} rows/s, availability_admitted "
+        f"{st['availability_admitted']}, retries {ist['retries']}; "
+        f"{checked} sampled rows bit-exact")
+    if st["availability_admitted"] != 1.0 or ist["retries"]:
+        fail("the int32 front door failed or retried a ticket")
+    launched = {k: c.LAUNCHES[k] for k, c in (
+        ("adv_gather_packed_rows", ops), ("gather_fused_parts", ops),
+        ("predicate_scan", scan_ops))}
+    log(f"kernels launched on the front door path: "
+        f"{ {k: v for c in counters for k, v in c.LAUNCHES.items()} }")
+    idle = [k for k, v in launched.items() if v <= 0]
+    if idle:
+        fail(f"kernels never launched on the front door path: {idle}")
+    return launched
 
 
 # -- phase 4 ------------------------------------------------------------------
@@ -879,12 +1140,13 @@ def compiled_kinds(ex, preds: dict) -> None:
 
 
 def pushdown_path(Q, FeatureService, ex, plan, table, p1, p2, group_col,
-                  agg_col, svc_kw, plain_reqs) -> None:
+                  agg_col, svc_kw, plain_reqs, host_p1) -> None:
     """Every pushdown entry point on the resident table, each result held
     against the numpy host reference over the whole table; card and host
-    times side by side (card: median of 3 calls, each synchronised)."""
+    times side by side (card: median of 3 calls, each synchronised).
+    ``host_p1`` is P1's host mask and its time, taken once in phase 3b."""
     n = plan.n_rows
-    h1, th1 = host_clock(lambda: Q.predicate_mask_host(table, p1))
+    h1, th1 = host_p1
     h2, th2 = host_clock(lambda: Q.predicate_mask_host(table, p2))
     rows1, tr1 = host_clock(lambda: np.flatnonzero(h1))
     for name, pred, h, th in (("P1", p1, h1, th1), ("P2", p2, h2, th2)):
@@ -1366,6 +1628,7 @@ def main() -> None:
     from repro_torch.kernels.onehot_wide import ref as wide_ref
     from repro_torch.kernels.predicate_scan import ref as scan_ref
     from repro_torch.models import widedeep as wd
+    from repro_torch import serve as S
     from repro_torch.serve import FeatureService
     counters = (ops, scan_ops, hist_ops, wide_ops, unpack_ops)
 
@@ -1539,6 +1802,18 @@ def main() -> None:
         fail(f"kernels never launched on the serving path: {idle}")
     log(f"phase 3 (serving) wall: {time.perf_counter() - phase_t0:.3f} s")
 
+    # -- 3b. front door ------------------------------------------------------------
+    phase_t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    host_p1 = host_clock(lambda: Q.predicate_mask_host(table, p1))
+    log(f"front door (bench_featurize.py's serve/feature_service_frontend "
+        f"over this table, one shard; P1's host mask {host_p1[1]:.6f} s):")
+    front = front_door_path(S, ops, scan_ops, ex_p, plan_p, plan_i, p1,
+                            np.flatnonzero(host_p1[0]),
+                            np.random.default_rng(args.seed + 12), counters)
+    log(f"max_memory_allocated: {torch.cuda.max_memory_allocated()} B")
+    log(f"phase 3b (front door) wall: {time.perf_counter() - phase_t0:.3f} s")
+
     # -- 4. pushdown path ----------------------------------------------------------
     phase_t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
@@ -1546,7 +1821,7 @@ def main() -> None:
         counter.reset_launches()
     pushdown_path(Q, FeatureService, ex_p, plan_p, table, p1, p2, "device",
                   "income", dict(prefetch=2, buckets=(bucket,),
-                                 coalesce=coalesce), pushdown_reqs)
+                                 coalesce=coalesce), pushdown_reqs, host_p1)
     pushed = {**scan_ops.LAUNCHES,
               "masked_counts": hist_ops.LAUNCHES["masked_counts"]}
     log(f"kernels launched on the pushdown path: "
@@ -1556,6 +1831,8 @@ def main() -> None:
     if idle:
         fail(f"kernels never launched on the pushdown path: {idle}")
     launches.update(pushed)
+    for k, v in front.items():
+        launches[k] += v
     log(f"phase 4 (pushdown) wall: {time.perf_counter() - phase_t0:.3f} s")
 
     # -- 5. train path (paper Fig 1/2) ----------------------------------------------

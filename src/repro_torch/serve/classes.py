@@ -1,18 +1,30 @@
-"""Request classes and latency accounting for feature serving.
+"""Request classes and latency accounting for the serving front door.
 
-A **request class** is a named service level (``interactive`` / ``batch`` /
-``background`` are the presets) that bundles what the serving stack needs
-to treat one tenant's work differently from another's: a priority with an
-anti-starvation aging rate, a per-class coalescing policy (``coalesce`` /
-``linger_us``), a default ``deadline_ms``, and an admission window
-(``max_inflight`` / ``queue_depth``). The port's :class:`FeatureService`
-serves the ``default`` class only; per-class scheduling and admission come
-with the front door.
+The multi-tenant front door (:mod:`repro_torch.serve.frontend`) speaks in
+**request classes**: named service levels (``interactive`` / ``batch`` /
+``background`` are the presets) that bundle everything the serving stack
+needs to treat one tenant's work differently from another's —
+
+- a **priority** plus an **anti-starvation aging rate** that the pump's
+  group selection scores queued work by (a ``background`` chunk outranks
+  an ``interactive`` one once it has waited long enough, so low-priority
+  work always drains),
+- a per-class **coalescing policy** (``coalesce`` depth and ``linger_us``
+  hold time — ``interactive`` launches immediately in singleton groups,
+  ``batch`` lingers for fuller launches),
+- a default **deadline_ms** applied to submits that do not pass their
+  own, and
+- the front door's **admission window** (``max_inflight`` outstanding
+  requests admitted freely, ``queue_depth`` more admitted as queued
+  work, anything past that rejected with a typed :class:`Overloaded`).
 
 :class:`LatencyHistogram` is the streaming log-bucketed latency record
-behind :meth:`FeatureService.latency_percentile` — it sees every completed
-ticket at a fixed ~10% relative resolution, so its percentiles are unbiased
-however long the service has been up.
+behind the per-class SLO gates — unlike the bench-compat
+``FeatureService.latencies`` deque (a sliding 8192-sample window whose
+``np.percentile`` silently reports the p99 of only the most RECENT
+tickets on long runs), the histogram sees every completed ticket at a
+fixed ~10% relative resolution, so its percentiles are unbiased however
+long the service has been up.
 """
 from __future__ import annotations
 
@@ -77,6 +89,28 @@ def default_classes() -> tuple[RequestClass, ...]:
     )
 
 
+class Overloaded(RuntimeError):
+    """Typed admission rejection from the front door: the request class's
+    outstanding work is past ``max_inflight + queue_depth``.
+
+    Carries the saturation picture (``klass``, ``tenant``, ``outstanding``
+    against ``bound``) and a ``retry_after_s`` hint — the front door's
+    estimate of when a slot should free up (from the class's observed p50
+    latency), so a well-behaved client backs off instead of hammering.
+    Nothing was enqueued: an Overloaded submit left no ticket behind.
+    """
+
+    def __init__(self, msg: str, *, klass: str | None = None,
+                 tenant: str | None = None, outstanding: int = 0,
+                 bound: int = 0, retry_after_s: float = 0.0):
+        super().__init__(msg)
+        self.klass = klass
+        self.tenant = tenant
+        self.outstanding = outstanding
+        self.bound = bound
+        self.retry_after_s = retry_after_s
+
+
 class LatencyHistogram:
     """Streaming log-bucketed latency histogram (see module docstring).
 
@@ -123,6 +157,15 @@ class LatencyHistogram:
             self.min_s = s
         if s > self.max_s:
             self.max_s = s
+
+    def merge(self, other: "LatencyHistogram") -> None:
+        if other._n != self._n or other._lo != self._lo:
+            raise ValueError("histogram layouts differ")
+        self.counts += other.counts
+        self.count += other.count
+        self.total_s += other.total_s
+        self.min_s = min(self.min_s, other.min_s)
+        self.max_s = max(self.max_s, other.max_s)
 
     def percentile(self, q: float) -> float:
         """The q-th percentile in SECONDS over every recorded sample

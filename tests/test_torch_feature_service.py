@@ -4,7 +4,7 @@ request sequence — arbitrary rows, mixed sizes, chunks past the largest
 bucket, coalesced launches — and must return identical features, ship the
 same host->device bytes and make the same number of launches. Then the
 port's own serving contract: deadlines, per-group failure isolation,
-timeouts, pause/drain/shutdown.
+timeouts, pause/drain/shutdown, and ``serve_stream``'s order.
 """
 import threading
 import time
@@ -17,7 +17,8 @@ from repro.core import FeaturePlan as JPlan, FeatureSet as JFeatureSet
 from repro.serve import FeatureService as JService
 from repro_torch.columnar import Table
 from repro_torch.core import FeaturePlan, FeatureSet
-from repro_torch.serve import DeadlineExceeded, FeatureService, ServeError
+from repro_torch.serve import (DeadlineExceeded, FaultPolicy, FeatureService,
+                               ServeError)
 
 N = 3001
 
@@ -126,8 +127,11 @@ def test_concurrent_submitters_get_their_own_rows():
 
 
 def test_failed_launch_fails_only_its_group():
+    """With no retries (the reference's behaviour at ``max_retries=0``) a
+    launch that raises fails exactly its group's tickets."""
     _, plan = _plans(True)
-    svc = FeatureService(plan, buckets=(64,), coalesce=2)
+    svc = FeatureService(plan, buckets=(64,), coalesce=2,
+                         fault_policy=FaultPolicy(max_retries=0))
     real = svc._executor._rows_future
     calls = []
 
@@ -157,13 +161,19 @@ def test_failed_launch_fails_only_its_group():
 
 
 def test_failed_retire_raises_from_result():
+    """A retire that keeps raising is retried like a failed launch (the
+    default policy: 3 retries); then the ticket's ServeError carries the
+    attempts and the cause, and the service goes on serving."""
     _, plan = _plans(True)
     with FeatureService(plan, buckets=(64,)) as svc:
         svc._await_flight = lambda fl: (_ for _ in ()).throw(
             RuntimeError("device fault"))
         t = svc.submit(np.arange(5))
-        with pytest.raises(ServeError):
+        with pytest.raises(ServeError) as ei:
             svc.result(t, timeout=30)
+        assert ei.value.attempts == 4
+        assert isinstance(ei.value.__cause__, RuntimeError)
+        assert svc.stats["retries"] == 3
         del svc._await_flight
         r = np.arange(40, 90)
         assert np.array_equal(svc.result(svc.submit(r), timeout=30),
@@ -218,13 +228,15 @@ def test_client_api_guards():
     "ignore::pytest.PytestUnhandledThreadExceptionWarning")
 def test_pump_death_unblocks_waiters():
     """An error in the pump's own control logic (outside a guarded launch)
-    poisons the service: blocked and later callers raise, none hangs."""
+    with no restart budget poisons the service: blocked and later callers
+    raise, none hangs."""
     _, plan = _plans(True)
-    svc = FeatureService(plan, buckets=(64,))
+    svc = FeatureService(plan, buckets=(64,),
+                         fault_policy=FaultPolicy(pump_restarts=0))
     svc.pause()
     t = svc.submit(np.arange(4))
 
-    def boom(now):
+    def boom(queue, now):
         raise RuntimeError("control logic bug")
 
     svc._take_group = boom
@@ -235,3 +247,22 @@ def test_pump_death_unblocks_waiters():
         svc.submit(np.arange(4))
     svc.shutdown()
     assert not svc._pump.is_alive()
+
+
+@pytest.mark.parametrize("packed", [True, False])
+def test_service_serve_stream_order(packed):
+    """Counterpart of the reference's ``test_service_serve_stream_order``:
+    (rows, features) come back in submission order, equal to the
+    reference service's stream."""
+    jplan, plan = _plans(packed)
+    rng = np.random.default_rng(5)
+    batches = [rng.integers(0, N, 64) for _ in range(6)]
+    with JService(jplan, buckets=(64,)) as jsvc, \
+            FeatureService(plan, buckets=(64,)) as svc:
+        want = list(jsvc.serve_stream(iter(batches)))
+        got = list(svc.serve_stream(iter(batches)))
+    assert len(got) == 6
+    for (rows, feats), (jrows, jfeats), b in zip(got, want, batches):
+        assert np.array_equal(rows, b) and np.array_equal(jrows, b)
+        assert np.array_equal(feats, np.asarray(jfeats))
+        assert np.array_equal(feats, plan.host_features(b))

@@ -3,8 +3,9 @@ three ADV gathers (each on its edge set too), the predicate
 scan (on its term sets and its layout cases), the masked counts (on the
 word-major grid too), the one-hot wide layer (on its forward's grid too)
 with its gradient (bit for bit against the CPU, and the same in
-every launch), and the Table 6 path's bit-unpack, counts and single-table
-gather.
+every launch), the Table 6 path's bit-unpack, counts and single-table
+gather, and a front door serving through the gathers with a retried
+fault.
 
 Needs a CUDA device and ``nvcc`` (the kernels build at first use); every
 test skips without a card. Imports neither JAX nor the reference package,
@@ -364,3 +365,48 @@ def test_single_table_gather_row_shapes_on_card(cuda):
         assert torch.equal(got, want), (tuple(table.shape), table.dtype,
                                         codes.numel(), codes.data_ptr() % 16)
         assert ops.LAUNCHES["adv_gather"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "int32"])
+def test_front_door_retries_a_class_fault_on_card(cuda, packed):
+    """A front door on the card over a small plan, one injected fault on
+    the batch class: the group is re-launched once through the same kernel
+    and every ticket equals the same front door on the CPU (the plain
+    versions) bit for bit, with availability 1.0 over admitted work."""
+    from repro_torch.columnar import Table
+    from repro_torch.core import FeaturePlan, FeatureSet
+    from repro_torch.serve import (FaultInjector, FaultPolicy,
+                                   FeatureFrontend)
+    rng = np.random.default_rng(0)
+    n = 5000
+    table = Table.from_data({"age": rng.integers(18, 90, n),
+                             "state": rng.integers(0, 50, n),
+                             "device": rng.integers(0, 4, n)})
+    fs = (FeatureSet().add("age", "zscore").add("state", "onehot")
+          .add("device", "onehot"))
+    reqs = [(rng.integers(0, n, int(rng.integers(1, 300))),
+             ("interactive", "batch", "background")[i % 3])
+            for i in range(24)]
+    key = "adv_gather_packed_rows" if packed else "gather_fused_parts"
+    served = {}
+    for dev in (cuda, torch.device("cpu")):
+        plan = FeaturePlan(table, fs, packed=packed, device=dev)
+        inj = FaultInjector().fail_launches(1, klass="batch")
+        launched = ops.LAUNCHES[key]
+        with FeatureFrontend.for_plan(
+                plan, buckets=(64, 256), faults=inj,
+                fault_policy=FaultPolicy(backoff_s=0.001)) as fe:
+            fe.service.pause()
+            tks = [fe.submit(r, klass=k) for r, k in reqs]
+            fe.service.resume()
+            served[dev.type] = [fe.result(t, timeout=60) for t in tks]
+            st = fe.stats()
+            assert fe.service.stats["retries"] == 1
+            assert inj.faults_injected == 1
+            assert st["availability_admitted"] == 1.0
+        if dev.type == "cuda":
+            assert ops.LAUNCHES[key] > launched
+    for (r, _), g, c in zip(reqs, served["cuda"], served["cpu"]):
+        assert np.array_equal(g, c)
+        assert np.array_equal(g, plan.host_features(r))
