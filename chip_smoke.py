@@ -79,6 +79,27 @@ checkout's sources (into build/torch_ext/) and needs one card. Phases:
    does a retry in a fault-free run. Last, one burst through a front door
    over the int32 plan. The packed rows gather, the int32 gather and the
    scan must have launched.
+3c. sharded serving — launch counts set to 0 again; the serving table
+   again in 4 IMCUs of 2**23 rows (``bench_featurize.py``'s n // 4; its
+   dictionaries copied), served by ``FeatureService(sharded=True)``: 4
+   shards on 4 streams of cuda:0, one copy of the ADV tables. A: the
+   ``_sharded_serve_comparison`` mix (4,096 64-row blocks at word-aligned
+   starts, buckets (64,), coalesce 8, linger 1 ms) against the unsharded
+   packed service as control, one warm-up and three timed runs each in
+   turns (rows/s, p50/p99, launches, the kernel's share of the wall,
+   resident bytes). D: ``count_where`` of P1 and P2, ``filtered_rows``,
+   ``groupby_where``, ``agg_where`` and ``submit(where=P1)`` on the sharded
+   service, each equal to the unsharded executor's answer bit for bit. B:
+   the ``_skewed_serve_comparison`` mix (800 Zipf(1.2) blocks, hot_factor
+   2, max_replicas 3; three warm-up loops each followed by
+   ``rebalance()``): the hot shard must gain a replica; launches per
+   stream. E: one sharded burst over the int32 plan (host routing). C: an
+   append of 2**20 rows to a service built with ``row_budget`` = 2**23,
+   ``rebalance()`` splits the tail at 2**25, then requests across the new
+   seam. Every second to eighth result (>= 10,000 rows a run) equals
+   ``host_features`` bit for bit; any retry or failed ticket fails the
+   phase. The packed rows gather, the int32 gather, the scan and the
+   masked counts must have launched.
 4. pushdown path — launch counts set to 0 again; on the same packed plan
    and executor: count_where, filtered_rows, batch_where, groupby_where and
    agg_where of two predicates (AND and OR; range and LUT terms), and a
@@ -1102,6 +1123,273 @@ def front_door_path(S, ops, scan_ops, ex_p, plan, plan_i, p1, rows_p1, rng,
     return launched
 
 
+# -- phase 3c -----------------------------------------------------------------
+
+SHARD_RSZ = 64      # bench_featurize.py:_sharded_serve_comparison's rsz
+N_SHARDS = 4        # its n_shards: IMCUs of n // 4 rows (2**23 at 2**25)
+
+
+def sharded_table(Column, Dictionary, Table, table, imcu_rows: int):
+    """The serving table again, its IMCUs ``imcu_rows`` long: each column's
+    codes under a copy of its dictionary, so appends to this table leave
+    the other phases' table as it was."""
+    cols = {}
+    for name in table.names:
+        d = table[name].dictionary
+        cols[name] = Column(Dictionary(values=d.values.copy(),
+                                       counts=d.counts.copy(), name=d.name,
+                                       sorted_codes=d.sorted_codes),
+                            table[name].codes(), imcu_rows=imcu_rows)
+    return Table(cols)
+
+
+def shard_streams(sx) -> set:
+    """The CUDA streams the shards' primary executors launch on."""
+    return {ex.stream.cuda_stream for ex in sx.executors}
+
+
+def stream_counter(svc) -> dict:
+    """Count each launch by the stream that made it (wraps ``_launch``)."""
+    counts: dict = {}
+    orig = svc._launch
+
+    def counted(group, s, ex, stream):
+        counts[(s, ex.stream_token)] = counts.get((s, ex.stream_token),
+                                                  0) + 1
+        return orig(group, s, ex, stream)
+    svc._launch = counted
+    return counts
+
+
+def launch_counts(counters) -> dict:
+    """Every kernel's launch count, by name, as the wrappers have it now."""
+    return {k: v for c in counters for k, v in c.LAUNCHES.items()}
+
+
+def burst(svc, reqs, every: int):
+    """The bench's loop: submit every request, then drain; returns the
+    wall and every ``every``-th (rows, features)."""
+    t0 = time.perf_counter()
+    tickets = [svc.submit(r) for r in reqs]
+    out = svc.drain(timeout=120)
+    wall = time.perf_counter() - t0
+    if len(out) != len(tickets):
+        fail(f"a burst resolved {len(out)} of {len(tickets)} tickets")
+    return wall, [(reqs[i], out[t]) for i, t in enumerate(tickets)
+                  if i % every == 0]
+
+
+def check_clean(name: str, svc) -> None:
+    """Fail on any retry or failed ticket of a fault-free run."""
+    st = svc.stats
+    if st["retries"] or st["failed_tickets"] or st["failovers"]:
+        fail(f"{name}: the fault-free run retried or failed tickets "
+             f"(retries {st['retries']}, failed {st['failed_tickets']})")
+
+
+def sharded_path(S, ops, scan_ops, hist_ops, ex_p, plan_p, plan_s, plan_i,
+                 p1, p2, rng, counters) -> dict:
+    """Phase 3c: bench_featurize.py's sharded and skewed serve mixes on the
+    serving table cut into 4 IMCU shards (4 streams of cuda:0) against the
+    unsharded packed service, then sharded pushdown held against the
+    unsharded executor, a sharded int32 burst, and a tail split after an
+    append. Returns the launches."""
+    n_rows = plan_s.n_rows
+    svc_kw = dict(buckets=(SHARD_RSZ,), coalesce=8, linger_us=1000.0)
+    # A. _sharded_serve_comparison: 64-row blocks at word-aligned starts
+    starts = rng.integers(0, (n_rows - SHARD_RSZ) // 32, 4096) * 32
+    reqs = [np.arange(s, s + SHARD_RSZ) for s in starts]
+    svc = S.FeatureService(plan_s, sharded=True, **svc_kw)
+    ctl = S.FeatureService(plan_p, **svc_kw)
+    sx = svc._sharded_ex
+    if svc.n_shards != N_SHARDS:
+        fail(f"the sharded table has {svc.n_shards} shards, not "
+             f"{N_SHARDS}")
+    streams = shard_streams(sx)
+    if len(streams) != N_SHARDS or \
+            torch.cuda.default_stream().cuda_stream in streams:
+        fail(f"the {N_SHARDS} shards launch on {len(streams)} streams of "
+             "their own")
+    # the kernel at this path's launch (8 x 64 shard-local rows), on the
+    # default stream once the shard's put has landed
+    ex0 = sx.executors[0]
+    torch.cuda.synchronize()
+    launch_rows = torch.from_numpy(rng.integers(
+        0, ex0.plan.n_rows, 8 * SHARD_RSZ).astype(np.int32)).to(plan_s.device)
+    k_ms = time_ms(lambda: ops.adv_gather_packed_rows(
+        ex0._flat_words, ex0._wmeta, ex0._device_fused(), launch_rows),
+        iters=50, reps=15, queue_ahead=True)
+    # the unsharded executor's pushdown answers, which D holds the
+    # sharded ones against (taken before the counts are set to 0)
+    want = {"count_where(P1)": ex_p.count_where(p1),
+            "count_where(P2)": ex_p.count_where(p2),
+            "filtered_rows(P1)": ex_p.filtered_rows(p1),
+            "groupby_where(device, P2)": ex_p.groupby_where("device", p2)[1],
+            "agg_where(P1, income, mean)": ex_p.agg_where(p1, "income",
+                                                          "mean")}
+    rows_p1 = want["filtered_rows(P1)"]
+    feats_p1 = ex_p.batch(rows_p1).cpu().numpy()
+    for counter in counters:
+        counter.reset_launches()
+    # both services pay the per-stream count's wrapper on every launch; the
+    # control's launches are taken out of the sharded path's counts
+    per_stream, ctl_stream = stream_counter(svc), stream_counter(ctl)
+    ctl_launched = dict.fromkeys(launch_counts(counters), 0)
+
+    def control_burst():
+        before = launch_counts(counters)
+        out = burst(ctl, reqs, 8)
+        for k, v in launch_counts(counters).items():
+            ctl_launched[k] += v - before[k]
+        return out
+
+    runs = {"sharded": lambda: burst(svc, reqs, 8), "control": control_burst}
+    checked, walls = [], {"sharded": [], "control": []}
+    for key, s in (("sharded", svc), ("control", ctl)):
+        checked.append(check_sample(f"{key} warm-up", plan_s,
+                                    runs[key]()[1]))
+        s.reset_latency_window()
+    launches0 = {"sharded": svc.stats["launches"],
+                 "control": ctl.stats["launches"]}
+    for _ in range(3):
+        for key in ("sharded", "control"):
+            wall, sampled = runs[key]()
+            walls[key].append(wall)
+            checked.append(check_sample(f"{key} run", plan_s, sampled))
+    rows = len(reqs) * SHARD_RSZ
+    for key, s in (("sharded", svc), ("control", ctl)):
+        check_clean(key, s)
+        st = s.stats
+        w = statistics.median(walls[key])
+        n_l = st["launches"] - launches0[key]
+        log(f"  {key}: {len(reqs)} requests of {SHARD_RSZ} rows a run, "
+            f"median wall {w:.6f} s of {[round(x, 6) for x in walls[key]]} "
+            f"= {rows / w:.1f} rows/s; p50 "
+            f"{s.latency_percentile(50) * 1e3:.4f} ms, p99 "
+            f"{s.latency_percentile(99) * 1e3:.4f} ms; {n_l} launches in 3 "
+            f"runs, {n_l * k_ms / (sum(walls[key]) * 1e3):.6f} of the wall "
+            f"in the kernel ({k_ms:.6f} ms a launch at 8 x 64 rows); "
+            f"packed_ranges {st['packed_ranges']}, split_requests "
+            f"{st['split_requests']}"
+            + (f", shard_launches {st['shard_launches']}"
+               if key == "sharded" else ""))
+    ratio = statistics.median(walls["control"]) / \
+        statistics.median(walls["sharded"])
+    fused = {id(ex._device_fused()) for s in range(sx.n_shards)
+             for ex in sx.stream_executors(s)}
+    words = sx.device_bytes()
+    log(f"  sharded / control rows/s {ratio:.4f}; resident on the card: "
+        f"{ {str(d): b for d, b in words.items()} } B of words over "
+        f"{sx.n_shards} shards (the control's stream "
+        f"{ctl._executor.resident_bytes()} B), {len(fused)} copy of the ADV "
+        f"tables ({plan_s.fused_tables().nbytes} B), {len(sx._caches)} "
+        f"table cache; launches by (shard, stream): {per_stream}, the "
+        f"control's {ctl_stream}; the control's kernel launches "
+        f"{ {k: v for k, v in ctl_launched.items() if v} }, not counted "
+        "below")
+    if len(fused) != 1 or len(sx._caches) != 1:
+        fail("the shards hold more than one copy of the ADV tables")
+    if sum(words.values()) != sum(ex.stream_nbytes()
+                                  for ex in sx.executors):
+        fail("the shards' resident words are not one stream each")
+    ctl.shutdown()
+    # D. sharded pushdown against the unsharded executor, bit for bit
+    got = {"count_where(P1)": svc.count_where(p1),
+           "count_where(P2)": svc.count_where(p2),
+           "filtered_rows(P1)": svc.filtered_rows(p1),
+           "groupby_where(device, P2)": svc.groupby_where("device", p2)[1],
+           "agg_where(P1, income, mean)": svc.agg_where(p1, "income",
+                                                        "mean")}
+    for k in want:
+        if not np.array_equal(np.asarray(got[k]), np.asarray(want[k])):
+            fail(f"sharded {k} differs from the unsharded executor's")
+    t0 = time.perf_counter()
+    feats = svc.result(svc.submit(where=p1), timeout=120)
+    t_where = time.perf_counter() - t0
+    if not np.array_equal(feats, feats_p1):
+        fail("sharded submit(where=P1) differs from the unsharded batch")
+    log(f"  sharded pushdown: count_where P1 {got['count_where(P1)']}, P2 "
+        f"{got['count_where(P2)']}, filtered_rows(P1) {rows_p1.size} rows, "
+        f"groupby_where, agg_where and submit(where=P1) ({t_where:.6f} s) "
+        "equal the unsharded executor's bit for bit")
+    check_clean("sharded pushdown", svc)
+    svc.shutdown()
+    # B. _skewed_serve_comparison: Zipf(1.2) block ranks, hot shard 0
+    blocks = (n_rows - SHARD_RSZ) // 32
+    ranks = np.minimum(rng.zipf(1.2, 800), blocks) - 1
+    zreqs = [np.arange(s, s + SHARD_RSZ) for s in ranks * 32]
+    hot_share = float(np.mean(ranks * 32 < n_rows // N_SHARDS))
+    skew = S.FeatureService(plan_s, sharded=True, hot_factor=2.0,
+                            max_replicas=3, **svc_kw)
+    per_stream = stream_counter(skew)
+    for _ in range(3):                  # the monitor converges on the skew
+        checked.append(check_sample("skewed warm-up", plan_s,
+                                    burst(skew, zreqs, 2)[1]))
+        skew.rebalance()
+    if skew.replicas[0] < 1:
+        fail(f"the monitor did not replicate the hot shard: "
+             f"{skew.replicas}")
+    per_stream.clear()
+    skew.reset_latency_window()
+    wall, sampled = burst(skew, zreqs, 2)
+    checked.append(check_sample("skewed run", plan_s, sampled))
+    check_clean("skewed", skew)
+    log(f"  skewed: hot share {hot_share:.4f}, replicas {skew.replicas}, "
+        f"{len(zreqs)} requests in {wall:.6f} s = "
+        f"{len(zreqs) * SHARD_RSZ / wall:.1f} rows/s, p99 "
+        f"{skew.latency_percentile(99) * 1e3:.4f} ms; launches by (shard, "
+        f"stream): {per_stream}; shard_launches "
+        f"{skew.stats['shard_launches']}, replicas_added "
+        f"{skew.stats['replicas_added']}")
+    skew.shutdown()
+    # E. one burst over the int32 plan, sharded (host routing, one pump)
+    ireqs = [rng.integers(0, n_rows, SHARD_RSZ) for _ in range(512)]
+    with S.FeatureService(plan_i, sharded=True, buckets=(SHARD_RSZ,)) as isvc:
+        wall, sampled = burst(isvc, ireqs, 2)
+        checked.append(check_sample("sharded int32", plan_i, sampled))
+        check_clean("sharded int32", isvc)
+        log(f"  sharded int32 plan: {len(plan_i.imcu_bounds())} host "
+            f"partitions, {isvc.stats['launches']} launches, {wall:.6f} s")
+    # C. an append of 2**20 rows, the tail split at the row budget, then
+    #    requests across the new seam
+    with S.FeatureService(plan_s, sharded=True,
+                          row_budget=n_rows // N_SHARDS, **svc_kw) as tsvc:
+        tsvc.result(tsvc.submit(np.arange(n_rows - 64, n_rows)),
+                    timeout=120)
+        add = min(1 << 20, n_rows // 4)
+        plan_s.refresh({c: plan_s.table[c].dictionary.add_rows(
+            plan_s.table[c].dictionary.values[rng.integers(
+                0, plan_s.table[c].dictionary.cardinality, add)])
+            for c in plan_s.columns})
+        actions = tsvc.rebalance()
+        if tsvc.stats["shard_splits"] != 1 or \
+                actions["split"] != [(N_SHARDS - 1, N_SHARDS, n_rows)]:
+            fail(f"the tail did not split once at {n_rows}: {actions}")
+        seam = [np.arange(n_rows - 32 * k, n_rows + 32 * k)
+                for k in range(1, 65)]
+        seam += [rng.integers(n_rows - add, n_rows + add, 256)
+                 for _ in range(64)]
+        wall, sampled = burst(tsvc, seam, 1)
+        checked.append(check_sample("tail split", plan_s, sampled))
+        check_clean("tail split", tsvc)
+        log(f"  tail split: refresh appended {add} rows, rebalance split "
+            f"the tail at {n_rows} (shards {tsvc.shard_starts}), "
+            f"{len(seam)} requests across the seam in {wall:.6f} s, "
+            f"split_requests {tsvc.stats['split_requests']}")
+    log(f"  {min(checked)}-{max(checked)} sampled rows a run bit-exact")
+    path = {k: v - ctl_launched[k]
+            for k, v in launch_counts(counters).items()}
+    launched = {k: path[k] for k in ("adv_gather_packed_rows",
+                                     "gather_fused_parts", "predicate_scan",
+                                     "masked_counts")}
+    log(f"kernels launched on the sharded path (the control's taken out): "
+        f"{path}")
+    idle = [k for k, v in launched.items() if v <= 0]
+    if idle:
+        fail(f"kernels never launched on the sharded path: {idle}")
+    return launched
+
+
 # -- phase 4 ------------------------------------------------------------------
 
 
@@ -1814,6 +2102,26 @@ def main() -> None:
     log(f"max_memory_allocated: {torch.cuda.max_memory_allocated()} B")
     log(f"phase 3b (front door) wall: {time.perf_counter() - phase_t0:.3f} s")
 
+    # -- 3c. sharded serving ----------------------------------------------------------
+    phase_t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    table_s = sharded_table(Column, Dictionary, Table, table,
+                            n_rows // N_SHARDS)
+    plan_s = FeaturePlan(table_s, serving_features(FeatureSet), packed=True,
+                         device=dev)
+    log(f"sharded serving (bench_featurize.py's serve/feature_service_"
+        f"sharded and _skewed mixes over this table in {N_SHARDS} IMCUs of "
+        f"{n_rows // N_SHARDS} rows; table and plan built in "
+        f"{time.perf_counter() - t0:.3f} s):")
+    sharded = sharded_path(S, ops, scan_ops, hist_ops, ex_p, plan_p, plan_s,
+                           plan_i, p1, p2,
+                           np.random.default_rng(args.seed + 13), counters)
+    del table_s, plan_s
+    log(f"max_memory_allocated: {torch.cuda.max_memory_allocated()} B")
+    log(f"phase 3c (sharded serving) wall: "
+        f"{time.perf_counter() - phase_t0:.3f} s")
+
     # -- 4. pushdown path ----------------------------------------------------------
     phase_t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
@@ -1831,7 +2139,7 @@ def main() -> None:
     if idle:
         fail(f"kernels never launched on the pushdown path: {idle}")
     launches.update(pushed)
-    for k, v in front.items():
+    for k, v in (*front.items(), *sharded.items()):
         launches[k] += v
     log(f"phase 4 (pushdown) wall: {time.perf_counter() - phase_t0:.3f} s")
 

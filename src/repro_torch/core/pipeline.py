@@ -41,6 +41,14 @@ Layering (this module):
   on the resident words and counts the matches, and the matches are
   compacted on the device and gathered, or counted per code by the masked
   histogram kernel.
+- :class:`ShardedFeatureExecutor` — per-IMCU serving.
+  :meth:`FeaturePlan.imcu_shards` of a packed plan yields one word-stream
+  SLICE per IMCU (zero-copy at word-aligned boundaries, repacked at
+  unaligned seams); each slice is resident on its own serve-pool device
+  with its own CUDA stream, the ADV tables are held once per device, and
+  arbitrary-row requests are routed to the shard that owns them. Hot
+  shards gain replicas (read fan-out) and the open tail shard splits under
+  streaming growth.
 - :class:`FeaturePipeline` — the facade over both.
 
 Every launch goes through a hand-written CUDA kernel on a CUDA device; the
@@ -64,8 +72,11 @@ tpu_width(b) <= 2b, F = feature dim):
 """
 from __future__ import annotations
 
+import bisect
+import functools
+import itertools
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Iterator, Mapping
 
 import numpy as np
@@ -79,6 +90,9 @@ from repro_torch.columnar.dictionary import Dictionary
 from repro_torch.columnar.table import Table
 from repro_torch.core.adv import AugmentedDictionary
 from repro_torch.core.feature_spec import FeatureSet
+from repro_torch.distributed.sharding import (canonical_device,
+                                              replica_device, serve_devices,
+                                              serve_mesh)
 from repro_torch.kernels.adv_gather import ops as adv_ops
 from repro_torch.kernels.bitunpack.kernel import tpu_width
 from repro_torch.kernels.predicate_scan import ops as scan_ops
@@ -138,6 +152,28 @@ def pad_rows_edge(rows: np.ndarray, to: int) -> np.ndarray:
     return np.concatenate([rows, np.full(pad, rows[-1], dtype=rows.dtype)])
 
 
+class _ShardStats(dict):
+    """Per-shard stats that roll every numeric delta up into the parent:
+    ``shard.stats['words_put'] += 1`` bumps the shard's own counter AND the
+    plan total, so the parent's numbers mean 'whole plan' while each
+    shard's dict says which shard did it."""
+
+    def __init__(self, parent: dict, init: Mapping | None = None):
+        super().__init__(init or {})
+        self._parent = parent
+
+    def __setitem__(self, key, value):
+        old = self.get(key, 0)
+        if isinstance(value, (int, float)) and isinstance(old, (int, float)):
+            self._parent[key] = self._parent.get(key, 0) + (value - old)
+        super().__setitem__(key, value)
+
+
+def _shard_stats(parent: dict) -> _ShardStats:
+    return _ShardStats(parent, {k: 0 for k, v in parent.items()
+                                if isinstance(v, (int, float))})
+
+
 @dataclass
 class ColumnPlan:
     """One column's compiled gather plan."""
@@ -186,21 +222,28 @@ class FeaturePlan:
             self._n_rows = table.n_rows
             self.packed_words: list[np.ndarray] = []
             self.device_bits: list[int] = []
-            # bumps on ANY stream change (repack or append); executors key
-            # their resident-stream sync on it
+            # packed_versions bumps on ANY stream change (repack or append);
+            # packed_layout_versions only on a width-boundary repack.
+            # Executors key their resident-stream sync on these: an append
+            # rewrites the tail, so only the open-ended last IMCU shard (and
+            # the parent) re-sync for it
             self.packed_versions: list[int] = []
+            self.packed_layout_versions: list[int] = []
             for p in self.plans:
                 words, db = table[p.column].device_words()
                 self.packed_words.append(words)
                 self.device_bits.append(db)
                 self.packed_versions.append(0)
+                self.packed_layout_versions.append(0)
         else:
             codes = [table[p.column].codes() for p in self.plans]
             # (C, N): one row-aligned int32 code stream per planned column —
             # a batch slice is ONE fancy-index + ONE host->device transfer
             self._codes_matrix = (np.stack(codes) if codes
                                   else np.zeros((0, table.n_rows), np.int32))
-        self._fused: adv_ops.FusedTables | None = None
+        # one-slot box, so IMCU shard views share (and co-invalidate) the
+        # resident ADV tables with their parent
+        self._fused_box: dict[str, adv_ops.FusedTables | None] = {"t": None}
 
     @staticmethod
     def _compile_column(column: str, aug: AugmentedDictionary,
@@ -264,11 +307,11 @@ class FeaturePlan:
     def fused_tables(self) -> adv_ops.FusedTables:
         """Every column's ADV tables, resident back to back on the device;
         rebuilt lazily after a refresh changed any of them."""
-        if self._fused is None:
-            self._fused = adv_ops.fuse_tables(
+        if self._fused_box["t"] is None:
+            self._fused_box["t"] = adv_ops.fuse_tables(
                 [p.fused_host for p in self.plans], self.device)
             self.stats["fused_rebuilds"] += 1
-        return self._fused
+        return self._fused_box["t"]
 
     # -- maintenance (§6.3: streaming inserts) -----------------------------------
     def refresh(self, new_codes: Mapping[str, np.ndarray] | None = None) -> int:
@@ -303,7 +346,7 @@ class FeaturePlan:
             self.stats["tables_refreshed"] += 1
             refreshed += 1
         if refreshed:
-            self._fused = None             # rebuilt on next use
+            self._fused_box["t"] = None    # every shard view rebuilds lazily
         if self.packed:
             for i, p in enumerate(self.plans):
                 db = tpu_width(p.bits)
@@ -313,6 +356,7 @@ class FeaturePlan:
                     self.packed_words[i] = pack_bits(codes, db)
                     self.device_bits[i] = db
                     self.packed_versions[i] += 1
+                    self.packed_layout_versions[i] += 1
                     self.stats["words_repacked"] += 1
             if fresh is not None:
                 for i in range(len(self.plans)):
@@ -335,6 +379,84 @@ class FeaturePlan:
             words = words[:-1]
         self.packed_words[i] = np.concatenate([words, pack_bits(codes, db)])
         self.packed_versions[i] += 1
+
+    # -- partitioning (per-IMCU shard plans) --------------------------------------
+    def imcu_shards(self) -> list["FeaturePlan"]:
+        """One plan per IMCU partition, sharing this plan's ADV tables.
+
+        int32 plans: shard k's code matrix is a zero-copy view of this
+        plan's matrix over the IMCU's rows. Packed plans: shard k carries
+        its own per-column word-stream slice (:class:`_PackedShardPlan`),
+        zero-copy where the IMCU boundary is word-aligned at the column's
+        device width and repacked once per refresh generation at unaligned
+        seams, so a sharded executor keeps each slice resident on its own.
+        The LAST shard is open-ended: rows appended by :meth:`refresh`
+        extend it. The resident ADV tables are shared and co-invalidated,
+        never put again, and every shard gets its own stats dict whose
+        counts roll up into this plan's (``stats['per_shard']``)."""
+        bounds = self.imcu_bounds()
+        shard_stats = [_shard_stats(self.stats) for _ in bounds]
+        self.stats["per_shard"] = shard_stats
+        if self.packed:
+            return [_PackedShardPlan(self, start, stop, st,
+                                     last=(i == len(bounds) - 1))
+                    for i, ((start, stop), st) in
+                    enumerate(zip(bounds, shard_stats))]
+        shards = []
+        for (start, stop), st in zip(bounds, shard_stats):
+            shard = FeaturePlan.__new__(FeaturePlan)
+            shard.device = self.device
+            shard.table = self.table
+            shard.features = self.features
+            shard.augmented = self.augmented
+            shard.dictionaries = self.dictionaries
+            shard.packed = False
+            shard.stats = st                       # rolls up into self.stats
+            shard.plans = self.plans               # shared ADV tables
+            shard._codes_matrix = self._codes_matrix[:, start:stop]
+            shard._fused_box = self._fused_box     # shared, co-invalidated
+            shards.append(shard)
+        return shards
+
+    def imcu_bounds(self) -> list[tuple[int, int]]:
+        """[start, stop) rows of each IMCU of the plan's first column."""
+        if not self.plans:
+            raise ValueError("plan has no feature columns to partition")
+        if self.table is None:
+            raise ValueError("a plan built from reference state has no "
+                             "IMCU bounds")
+        return self.table[self.plans[0].column].imcu_bounds()
+
+    # -- adaptive re-shard (tail split under streaming growth) --------------------
+    def split_tail_shard(self, tail: "_PackedShardPlan", cut: int,
+                         close: bool = True) -> "_PackedShardPlan":
+        """Split the open tail shard at parent row ``cut``; return the NEW
+        open tail shard over [cut, n_rows).
+
+        Appends extend the last shard only, so once it outgrows its row
+        budget the tail splits: the new shard's slice is zero-copy where
+        ``cut`` is word-aligned at a column's device width (``cut % 32 ==
+        0`` aligns at every width) and repacked at the seam otherwise. The
+        new shard's rolled-up stats dict is APPENDED to
+        ``stats['per_shard']`` (existing shard indices never move).
+        ``close=False`` leaves the old tail open, so a caller can swap its
+        routing first and close after (:meth:`_PackedShardPlan.close_at`);
+        until then both views serve [cut, n_rows) from the same words."""
+        if not self.packed:
+            raise RuntimeError("tail re-shard applies to packed plans only")
+        if not isinstance(tail, _PackedShardPlan) or tail._parent is not self:
+            raise ValueError("tail is not a shard view of this plan")
+        if not tail._last:
+            raise ValueError("only the open tail shard can split")
+        start, stop = tail.shard_bounds
+        if not start < cut <= stop:
+            raise ValueError(f"cut {cut} outside open tail ({start}, {stop}]")
+        st = _shard_stats(self.stats)
+        new = _PackedShardPlan(self, cut, stop, st, last=True)
+        self.stats.setdefault("per_shard", []).append(st)
+        if close:
+            tail.close_at(cut)
+        return new
 
     # -- data-movement accounting (paper's central claim) --------------------------
     def bytes_moved_adv(self, batch_rows: int) -> int:
@@ -419,7 +541,8 @@ def plan_from_reference(state: Mapping, device=None) -> FeaturePlan:
     plan.packed_words = words
     plan.device_bits = dbs
     plan.packed_versions = [0] * len(columns)
-    plan._fused = None
+    plan.packed_layout_versions = [0] * len(columns)
+    plan._fused_box = {"t": None}
     return plan
 
 
@@ -438,6 +561,166 @@ def _reference_dictionary(column: str, entry: Mapping, k: int,
                       sorted_codes=bool(entry["sorted"]))
 
 
+class _PackedShardPlan(FeaturePlan):
+    """One IMCU partition of a packed plan: a per-column word-stream slice.
+
+    Shares the parent's dictionaries, ADVs and resident ADV tables (one
+    box, co-invalidated on refresh); what is partitioned is exactly the
+    word streams. Column i's slice is zero-copy when the partition starts
+    word-aligned at the column's device width (``start % (32 / db) == 0``,
+    always true for the default 2**19-row IMCUs); an unaligned seam
+    repacks just this shard's rows, once per parent refresh generation.
+    ``last=True`` marks the open-ended tail shard: rows appended by the
+    parent's :meth:`FeaturePlan.refresh` extend it. Refresh always goes
+    through the parent, where the words, dictionaries and versions live.
+    """
+
+    def __init__(self, parent: FeaturePlan, start: int, stop: int,
+                 stats: _ShardStats, last: bool = False):
+        # deliberately NOT calling FeaturePlan.__init__: every layout
+        # artifact derives from the parent
+        self._parent = parent
+        self._start = start
+        self._stop = stop
+        self._last = last
+        self.packed = True
+        self.device = parent.device
+        self.table = parent.table
+        self.features = parent.features
+        self.augmented = parent.augmented
+        self.dictionaries = parent.dictionaries
+        self.plans = parent.plans               # shared ADV tables
+        self._fused_box = parent._fused_box     # shared, co-invalidated
+        self._codes_matrix = None
+        self.stats = stats                      # rolls up into the parent
+        self._words_cache: dict[int, tuple[int, np.ndarray]] = {}
+
+    @property
+    def shard_bounds(self) -> tuple[int, int]:
+        """[start, stop) in parent rows (stop follows appends when last)."""
+        stop = self._parent.n_rows if self._last else self._stop
+        return self._start, max(stop, self._start)
+
+    @property
+    def _n_rows(self) -> int:                   # FeaturePlan.n_rows reads it
+        start, stop = self.shard_bounds
+        return stop - start
+
+    @property
+    def device_bits(self) -> list[int]:
+        return self._parent.device_bits
+
+    @property
+    def packed_versions(self) -> list[int]:
+        # executors key their resident-stream sync on these: a width
+        # repack changes every shard's slice (layout version), an append
+        # only rewrites the open tail, so interior shards keep their
+        # resident streams through streaming inserts
+        if self._last:
+            return self._parent.packed_versions
+        return self._parent.packed_layout_versions
+
+    @property
+    def packed_words(self) -> list[np.ndarray]:
+        return [self._shard_words(i) for i in range(len(self.plans))]
+
+    def _shard_words(self, i: int) -> np.ndarray:
+        parent = self._parent
+        version = self.packed_versions[i]
+        hit = self._words_cache.get(i)
+        if hit is not None and hit[0] == version:
+            return hit[1]
+        db = parent.device_bits[i]
+        s = 32 // db
+        start, stop = self.shard_bounds
+        if start % s == 0:                      # word-aligned boundary
+            words = parent.packed_words[i][start // s:(stop + s - 1) // s]
+        else:                                   # seam: repack this shard only
+            codes = packed_gather(parent.packed_words[i], db,
+                                  np.arange(start, stop))
+            words = pack_bits(codes, db)
+            self.stats["words_repacked"] += 1
+        self._words_cache[i] = (version, words)
+        return words
+
+    def refresh(self, new_codes=None) -> int:
+        raise RuntimeError("shard plans are views — refresh the parent "
+                           "FeaturePlan; every shard re-syncs by itself")
+
+    def close_at(self, cut: int) -> None:
+        """Close this open tail shard at parent row ``cut``: it becomes an
+        interior shard over [start, cut). The second half of
+        :meth:`FeaturePlan.split_tail_shard`, for callers that swap
+        routing first. The slice cache drops: the version source switches
+        from packed to layout versions, and an equal number must not
+        revive a slice with the old open-ended bounds."""
+        if not self._last:
+            raise ValueError("only the open tail shard can close")
+        start, stop = self.shard_bounds
+        if not start < cut <= stop:
+            raise ValueError(f"cut {cut} outside open tail ({start}, {stop}]")
+        self._stop = cut
+        self._last = False
+        self._words_cache.clear()
+
+
+def _place_fused(fused: adv_ops.FusedTables,
+                 device: torch.device) -> adv_ops.FusedTables:
+    """A copy of ``fused`` on another device."""
+    return replace(fused, tables=fused.tables.to(device),
+                   meta=fused.meta.to(device),
+                   col_of=fused.col_of.to(device),
+                   jmeta=fused.jmeta.to(device))
+
+
+class _DeviceTableCache:
+    """The ADV tables as placed on one device. Executors on the same
+    device share one of these (:class:`ShardedFeatureExecutor` keeps one
+    per device), so the tables exist once per device, never once per
+    shard. On the plan's own device the placed tables ARE the plan's."""
+
+    def __init__(self):
+        self.fused_src: adv_ops.FusedTables | None = None
+        self.fused: adv_ops.FusedTables | None = None
+
+
+# process-unique launch-stream identity (FeatureExecutor.stream_token):
+# unlike id(executor), a token is never reused after an executor is dropped,
+# so health state keyed on it can never alias onto a NEW stream
+_STREAM_TOKENS = itertools.count()
+
+
+def _on_stream(fn):
+    """Run an executor method on the executor's own CUDA stream.
+
+    Executors without a stream of their own (``stream is None``: the CPU,
+    and executors built without ``own_stream``) run on the caller's
+    current stream, as before. Otherwise the executor's stream first waits
+    for the caller's current stream (inputs the caller queued there), the
+    body runs on it, and the caller's stream then waits for it; tensors
+    returned to the caller are recorded on the caller's stream, so the
+    caching allocator cannot reuse them while the caller reads them. A
+    call already on the executor's stream (the serving pump) runs as is.
+    """
+    @functools.wraps(fn)
+    def run(self, *args, **kw):
+        s = self.stream
+        if s is None:
+            return fn(self, *args, **kw)
+        cur = torch.cuda.current_stream(self.device)
+        if cur == s:
+            return fn(self, *args, **kw)
+        s.wait_stream(cur)
+        with torch.cuda.stream(s):
+            out = fn(self, *args, **kw)
+        cur.wait_stream(s)
+        for t in (out if isinstance(out, tuple) else (out,)):
+            if isinstance(t, torch.Tensor) and t.device.type == "cuda":
+                t.record_stream(cur)
+        return out
+    return run
+
+
 class FeatureExecutor:
     """Run-time half: resident word stream, kernel launches, and the
     ``prefetch``-deep batch iterator.
@@ -450,15 +733,34 @@ class FeatureExecutor:
     ARBITRARY rows via :meth:`_rows_future`: the kernel computes word index
     + bit offset against the resident stream, so the only per-call traffic
     is the 4B x N index vector, independent of column count.
+
+    Placement (the sharded-serving building block, one executor per IMCU
+    shard or replica): ``device`` commits the resident words and launches
+    to a device other than the plan's (default: the plan's);
+    ``table_cache`` shares the placed ADV tables between executors on one
+    device; ``commit=False`` defers the word-stream put to the first
+    launch. ``own_stream=True`` gives a CUDA executor a ``torch.cuda.Stream``
+    of its own: every put, launch and copy it makes runs there
+    (:func:`_on_stream`), and ``stream`` is None otherwise (the caller's
+    current stream). ``stream_token`` names the launch stream for health
+    state, unique for the process's lifetime.
     """
 
-    def __init__(self, plan: FeaturePlan, prefetch: int = 2):
+    def __init__(self, plan: FeaturePlan, prefetch: int = 2, device=None,
+                 table_cache: _DeviceTableCache | None = None,
+                 commit: bool = True, own_stream: bool = False):
         if prefetch < 1:
             raise ValueError("prefetch depth must be >= 1")
         self.plan = plan
         self.prefetch = prefetch
         self.packed = plan.packed
-        self.device = plan.device
+        self.device = plan.device if device is None else torch.device(device)
+        self.stream_token = next(_STREAM_TOKENS)
+        self.stream = (torch.cuda.Stream(self.device)
+                       if own_stream and self.device.type == "cuda" else None)
+        self._tcache = table_cache if table_cache is not None \
+            else _DeviceTableCache()
+        self._fused_seen: adv_ops.FusedTables | None = None
         # compiled-predicate cache: a deployed filter family scans on every
         # request, so the code-set compile and the device put of the term
         # table must not repeat per call (keyed also by the dictionaries'
@@ -474,14 +776,42 @@ class FeatureExecutor:
             self._word_offs: tuple[int, ...] = ()
             self._words_sig: tuple | None = None
             self._capacity = 0
-            self.ensure_range_capacity(plan.n_rows)
-        plan.fused_tables()            # resident before the first launch
+            if commit:
+                self.ensure_range_capacity(plan.n_rows)
+        self._device_fused()           # resident before the first launch
 
+    def _device_fused(self) -> adv_ops.FusedTables:
+        """The plan's ADV tables on this executor's device: the plan's own
+        on the plan's device, else one copy per device (the table cache),
+        placed again only after a refresh rebuilt them.
+
+        The tables are written synchronously (a pageable copy), so any
+        stream may read them once they exist; but they are freed when a
+        refresh replaces them, so an executor with its own stream records
+        them on it the first time it sees them, and the caching allocator
+        holds their memory until that stream's work on them is done."""
+        fused = self.plan.fused_tables()
+        tc = self._tcache
+        if tc.fused_src is not fused:
+            same = canonical_device(self.device) == \
+                canonical_device(self.plan.device)
+            tc.fused = fused if same else _place_fused(fused, self.device)
+            tc.fused_src = fused
+        placed = tc.fused
+        if self.stream is not None and self._fused_seen is not placed:
+            for t in (placed.tables, placed.meta, placed.col_of,
+                      placed.jmeta):
+                t.record_stream(self.stream)
+            self._fused_seen = placed
+        return placed
+
+    @_on_stream
     def gather_device(self, dev_codes: torch.Tensor) -> torch.Tensor:
         """(C, B) int32 device codes -> (B, out_dim) concatenated features."""
-        return adv_ops.gather_fused_parts(self.plan.fused_tables(), dev_codes)
+        return adv_ops.gather_fused_parts(self._device_fused(), dev_codes)
 
     # -- packed fast path: device-resident words, range batches -------------------
+    @_on_stream
     def ensure_range_capacity(self, limit: int) -> None:
         """Grow the device word stream to cover rows [0, pad32(limit)).
 
@@ -499,7 +829,10 @@ class FeatureExecutor:
         One concatenated buffer holds every column at the current capacity,
         so a refresh that touches any column re-puts the whole stream —
         word streams are 32/db x smaller than the codes they encode, and
-        one copy keeps device residency at exactly the stream bytes.
+        one copy keeps device residency at exactly the stream bytes. The
+        put runs on this executor's stream (callers hold it), so its
+        launches are ordered behind the put, and the old stream, read only
+        there, is reused only after them.
         """
         plan = self.plan
         sig = (tuple(plan.packed_versions), tuple(plan.device_bits),
@@ -531,9 +864,31 @@ class FeatureExecutor:
             return 0
         return int(self._flat_words.numel()) * 4
 
+    def stream_nbytes(self) -> int:
+        """Device bytes of a FULL commit at the current capacity (what a
+        promotion would charge), whether or not the words are resident."""
+        if not self.packed:
+            return 0
+        plan = self.plan
+        cap = max(self._capacity, _pad32(plan.n_rows))
+        return sum(cap * db // 32 * 4 for db in plan.device_bits)
+
+    def evict_words(self) -> int:
+        """Release the resident word stream; returns the bytes freed. The
+        tensor is dereferenced, not freed at once: it was put and read on
+        this executor's stream only, so the caching allocator hands its
+        memory out again only to later work on that stream. Any later
+        launch re-puts it through the version-keyed sync."""
+        freed = self.resident_bytes()
+        self._flat_words = None
+        self._wmeta = None
+        self._words_sig = None
+        return freed
+
     def _starts_tensor(self, starts: np.ndarray) -> torch.Tensor:
         return to_device(np.asarray(starts, np.int32), self.device)
 
+    @_on_stream
     def _range_future(self, start: int, batch: int) -> torch.Tensor:
         """Async gather of rows [start, start+batch) from resident words.
 
@@ -547,9 +902,10 @@ class FeatureExecutor:
                              f"[{start}, {start + batch})")
         self.ensure_range_capacity(max(start + batch, self.plan.n_rows))
         return adv_ops.adv_gather_packed(
-            self._flat_words, self._wmeta, self.plan.fused_tables(),
+            self._flat_words, self._wmeta, self._device_fused(),
             self._starts_tensor(np.array([start])), batch)
 
+    @_on_stream
     def _multi_range_future(self, starts, batch: int) -> torch.Tensor:
         """Async gather of K coalesced ranges -> (K, batch, out_dim) buffer.
 
@@ -567,7 +923,7 @@ class FeatureExecutor:
         self.ensure_range_capacity(max(int(starts.max()) + batch,
                                        self.plan.n_rows))
         out = adv_ops.adv_gather_packed(
-            self._flat_words, self._wmeta, self.plan.fused_tables(),
+            self._flat_words, self._wmeta, self._device_fused(),
             self._starts_tensor(starts), batch)
         return out.reshape(starts.size, batch, -1)
 
@@ -577,6 +933,7 @@ class FeatureExecutor:
         return self._range_future(start, _pad32(n))[:n]
 
     # -- packed random-row path: indices in, features out -------------------------
+    @_on_stream
     def _rows_future(self, rows) -> torch.Tensor:
         """Async indexed gather of arbitrary rows from the resident words.
 
@@ -596,7 +953,7 @@ class FeatureExecutor:
             dev_rows = to_device(np.asarray(rows, np.int32).reshape(-1),
                                  self.device)
         return adv_ops.adv_gather_packed_rows(
-            self._flat_words, self._wmeta, self.plan.fused_tables(), dev_rows)
+            self._flat_words, self._wmeta, self._device_fused(), dev_rows)
 
     # -- predicate pushdown: scan -> compact -> gather on resident words ----------
     def _dictionary(self, column: str) -> Dictionary:
@@ -648,6 +1005,7 @@ class FeatureExecutor:
             hit = self._pred_cache[key] = (terms, combine, packed)
         return hit
 
+    @_on_stream
     def _mask_count_future(self, pred) -> tuple[torch.Tensor, torch.Tensor]:
         """(mask, count) on the device from ONE scan launch over the
         resident stream, read in place: no code stream and no per-query
@@ -657,14 +1015,17 @@ class FeatureExecutor:
         return scan_ops.predicate_scan(self._flat_words, self._wmeta, packed,
                                        self.plan.n_rows, combine)
 
+    @_on_stream
     def predicate_mask(self, pred) -> torch.Tensor:
         """(n_rows,) bool device mask for a value-space predicate."""
         return self._mask_count_future(pred)[0]
 
+    @_on_stream
     def count_where(self, pred) -> int:
         """SELECT COUNT(*) WHERE pred — one scan launch, one scalar sync."""
         return int(self._mask_count_future(pred)[1])
 
+    @_on_stream
     def filtered_rows(self, pred) -> np.ndarray:
         """Matching row indices (ascending int64), compacted on the
         device."""
@@ -675,6 +1036,7 @@ class FeatureExecutor:
         rows = scan_ops.compact_rows(mask, _pad32(cnt))
         return rows[:cnt].cpu().numpy().astype(np.int64)
 
+    @_on_stream
     def batch_where(self, pred) -> tuple[np.ndarray, torch.Tensor]:
         """Filtered featurization: scan -> compact -> rows gather, all
         against the resident stream. Returns (rows, features) for the
@@ -692,6 +1054,7 @@ class FeatureExecutor:
         feats = self._rows_future(rows_dev)     # device-to-device indices
         return rows_dev[:cnt].cpu().numpy().astype(np.int64), feats[:cnt]
 
+    @_on_stream
     def _masked_counts_from(self, column: str,
                             mask: torch.Tensor) -> torch.Tensor:
         """(K,) per-code counts of ``column`` under a device mask."""
@@ -701,6 +1064,7 @@ class FeatureExecutor:
             self._flat_words, self._word_offs[ci], self.plan.device_bits[ci],
             mask, d.cardinality, self.plan.n_rows)
 
+    @_on_stream
     def groupby_where(self, column: str,
                       pred) -> tuple[np.ndarray, np.ndarray]:
         """GROUP BY column COUNT(*) WHERE pred — masked histogram over the
@@ -709,6 +1073,7 @@ class FeatureExecutor:
         return (self._dictionary(column).values,
                 counts.cpu().numpy().astype(np.int64))
 
+    @_on_stream
     def agg_where(self, pred, column: str, agg: str = "count") -> float:
         """Masked count/sum/mean of ``column`` under ``pred`` — K-entry
         dictionary tail work on top of the device masked histogram."""
@@ -722,6 +1087,7 @@ class FeatureExecutor:
         (int32 plans) or a per-column word gather (packed plans)."""
         return self.plan.host_codes(row_idx)
 
+    @_on_stream
     def batch(self, row_idx: np.ndarray) -> torch.Tensor:
         """Featurize the given rows. int32 plans ship the stacked code slice;
         packed plans ship ONLY the row indices — the kernel computes word
@@ -814,6 +1180,313 @@ class FeatureExecutor:
                 yield inflight.popleft()
         while inflight:
             yield inflight.popleft()
+
+
+class ShardedFeatureExecutor:
+    """Per-IMCU serving: one executor per shard, each on its own stream.
+
+    The plan is partitioned by :meth:`FeaturePlan.imcu_shards` and each
+    shard's resident word stream is committed to a device of the serve pool
+    (``devices``, default the plan's device; :func:`repro_torch.distributed.
+    sharding.serve_devices` round-robins shards over it) — 'move compute to
+    the data': a launch for rows of shard k runs on shard k's executor
+    against shard-local operands only. The ADV tables are held once per
+    DEVICE (shards sharing a device share one copy); the word streams, the
+    part that grows with table rows, stay partitioned. On a CUDA device
+    every executor, primary or replica, launches on its own
+    ``torch.cuda.Stream`` (several shards on one card are several streams).
+
+    :meth:`batch` is the synchronous routed gather: the host buckets rows
+    by owning shard, every shard's launch is dispatched before any result
+    is read, and the results are reassembled in request order. The serving
+    pump drives the per-shard executors directly (one queue per shard).
+
+    The shard set is adaptive: :meth:`add_replica` commits another copy of
+    a hot shard's words and :meth:`next_executor` round-robins reads over
+    the copies (every copy re-syncs from the parent plan's versioned words
+    at its next launch, so a refresh needs no fan-in); :meth:`split_tail`
+    closes the open tail shard at a cut row and opens a fresh tail once
+    appends outgrow a budget. Routing state is swapped as one snapshot
+    tuple, and a split orders create-new -> swap-routing -> close-old so a
+    reader holding either snapshot stays bit-exact. Mutators are not safe
+    against a concurrent :meth:`batch`: FeatureService runs them on its
+    pump; standalone users must quiesce first.
+    """
+
+    def __init__(self, plan: FeaturePlan, prefetch: int = 2, devices=None):
+        if not plan.packed:
+            raise ValueError("sharded executors serve packed plans; int32 "
+                             "plans route host code slices instead")
+        self.plan = plan
+        self.prefetch = prefetch
+        self.device_pool = serve_mesh(devices if devices is not None
+                                      else [plan.device])
+        self.shards = plan.imcu_shards()
+        self.devices = serve_devices(len(self.shards), self.device_pool)
+        # tables are held once per DEVICE, keyed by the device itself
+        # (equal devices are one key); the dict persists so replicas and
+        # splits landing on a device later reuse the same placed tables
+        self._caches = {dev: _DeviceTableCache() for dev in self.devices}
+        self.executors = [self._executor(sp, dev)
+                          for sp, dev in zip(self.shards, self.devices)]
+        self.replicas: list[list[FeatureExecutor]] = [[] for _ in self.shards]
+        self._rr = [0] * len(self.shards)   # read-fan-out cursor per shard
+        self._set_routing()
+
+    def _executor(self, shard_plan, device) -> FeatureExecutor:
+        return FeatureExecutor(shard_plan, prefetch=self.prefetch,
+                               device=device,
+                               table_cache=self._caches.setdefault(
+                                   device, _DeviceTableCache()),
+                               own_stream=True)
+
+    def _set_routing(self) -> None:
+        """Swap the routing table as ONE snapshot: readers take the tuple
+        once, so a concurrent swap never hands them new starts with an old
+        bisect list."""
+        starts = np.array([sp._start for sp in self.shards], np.int64)
+        self.starts = starts
+        self._starts_list = starts.tolist()
+        self._routing = (starts, self._starts_list)
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.shards)
+
+    # -- adaptive shard management -------------------------------------------------
+    def n_streams(self, shard: int) -> int:
+        """Launch streams serving this shard (primary + replicas)."""
+        return 1 + len(self.replicas[shard])
+
+    def stream_executors(self, shard: int) -> list[FeatureExecutor]:
+        return [self.executors[shard], *self.replicas[shard]]
+
+    def next_executor(self, shard: int) -> FeatureExecutor:
+        """Read fan-out: round-robin over the shard's launch streams (the
+        primary alone while it has no replica)."""
+        reps = self.replicas[shard]
+        if not reps:
+            return self.executors[shard]
+        i = self._rr[shard]
+        self._rr[shard] = (i + 1) % (1 + len(reps))
+        return self.executors[shard] if i == 0 else reps[i - 1]
+
+    def device_load(self) -> dict:
+        """Resident launch streams per device — the placement pressure the
+        replica and split policies balance."""
+        load: dict = {}
+        for s in range(self.n_shards):
+            for ex in self.stream_executors(s):
+                load[ex.device] = load.get(ex.device, 0) + 1
+        return load
+
+    def device_bytes(self) -> dict:
+        """Resident word-stream bytes per device, summed over every launch
+        stream, from the tensors actually held. The ADV tables are left
+        out: K-row constants held once per device."""
+        out: dict = {}
+        for s in range(self.n_shards):
+            for ex in self.stream_executors(s):
+                b = ex.resident_bytes()
+                if b:
+                    out[ex.device] = out.get(ex.device, 0) + b
+        return out
+
+    def add_replica(self, shard: int, device=None,
+                    avoid=frozenset()) -> FeatureExecutor:
+        """Commit a REPLICA of ``shard``'s resident words to the least
+        loaded pool device not already holding a copy (``device`` to name
+        one) and fan reads out over it. The replica shares the shard's plan
+        view, so its puts count in the same ``per_shard`` entry, and a
+        parent refresh re-puts it at its next launch like the primary.
+        ``avoid`` names unhealthy devices to place around."""
+        if device is None:
+            held = {e.device for e in self.stream_executors(shard)}
+            device = replica_device(self.device_pool, self.device_load(),
+                                    exclude=held, unhealthy=avoid)
+        else:
+            device = serve_mesh([device])[0]
+        ex = self._executor(self.shards[shard], device)
+        self.replicas[shard].append(ex)
+        self._rr[shard] = 0
+        return ex
+
+    def drop_replica(self, shard: int, index: int = -1) -> FeatureExecutor:
+        """Retire one of ``shard``'s replicas: later launches stop routing
+        to it. Its launches in flight keep their operands: its words were
+        put and read on its own stream only, so their memory goes back to
+        later work on that stream alone."""
+        if not self.replicas[shard]:
+            raise ValueError(f"shard {shard} has no replicas to drop")
+        ex = self.replicas[shard].pop(index)
+        self._rr[shard] = 0
+        return ex
+
+    def tail_rows(self) -> int:
+        """Rows owned by the open tail shard (append pressure)."""
+        start, stop = self.shards[-1].shard_bounds
+        return stop - start
+
+    def split_tail(self, cut: int | None = None, device=None) -> int:
+        """Split the open tail shard at parent row ``cut`` (default: the
+        word-aligned midpoint) and serve the new tail [cut, n_rows) from its
+        own executor on the least loaded device. Returns the new shard's
+        index. The new shard exists first, the routing snapshot flips
+        second, the old tail closes LAST: a reader holding the old snapshot
+        still finds rows >= cut in the then-still-open old tail."""
+        tail = self.shards[-1]
+        start, stop = tail.shard_bounds
+        if cut is None:
+            # word-aligned midpoint, clamped so the default stays valid on
+            # a sub-32-row tail (cut == stop closes it behind an empty one)
+            cut = min(start + max(32, (stop - start) // 2 // 32 * 32), stop)
+        new_plan = self.plan.split_tail_shard(tail, cut, close=False)
+        device = (replica_device(self.device_pool, self.device_load())
+                  if device is None else serve_mesh([device])[0])
+        ex = self._executor(new_plan, device)
+        self.shards.append(new_plan)
+        self.executors.append(ex)
+        self.replicas.append([])
+        self._rr.append(0)
+        self.devices.append(device)
+        self._set_routing()
+        tail.close_at(cut)
+        return len(self.shards) - 1
+
+    def shard_of(self, rows: np.ndarray) -> np.ndarray:
+        """Owning shard per row; rows past the last compile-time bound
+        (appends) belong to the open-ended last shard."""
+        starts, _ = self._routing
+        s = np.searchsorted(starts, rows, side="right") - 1
+        return np.minimum(s, len(starts) - 1)
+
+    @staticmethod
+    def _shard_scalar(slist: list[int], row: int) -> int:
+        return min(bisect.bisect_right(slist, row) - 1, len(slist) - 1)
+
+    def route(self, rows: np.ndarray, lo: int | None = None,
+              hi: int | None = None):
+        """Bucket request rows by owning shard: [(shard, local_rows, dest)].
+
+        ``dest`` gives each local row's position in the request (``None``:
+        the whole request, in order — the clustered-lookup fast path, two
+        scalar bisects and no per-row work). Local rows are shard-relative,
+        so every launch indexes its own shard's stream. Callers that know
+        the request's min/max row pass them in.
+        """
+        starts, slist = self._routing       # one snapshot, never torn
+        rows = np.asarray(rows, np.int64).reshape(-1)
+        if lo is None:
+            lo, hi = int(rows.min()), int(rows.max())
+        s_lo = self._shard_scalar(slist, lo)
+        s_hi = self._shard_scalar(slist, hi)
+        if s_lo == s_hi:                   # whole request owned by one shard
+            return [(s_lo, rows - starts[s_lo], None)]
+        shard = np.minimum(np.searchsorted(starts, rows, side="right") - 1,
+                           len(starts) - 1)
+        out = []
+        for s in np.unique(shard):
+            (dest,) = np.nonzero(shard == s)
+            out.append((int(s), rows[dest] - starts[s], dest))
+        return out
+
+    # -- predicate pushdown, sharded: scan per shard, serve matches locally -------
+    def _shard_masks(self, pred) -> list:
+        """Every shard's scan dispatched, on the executor that owns (or
+        replicates) its words, before any count is read: (shard, executor,
+        mask, count) per shard. Each executor compiles the predicate once
+        and caches it; the dictionaries are shared, so the terms agree."""
+        return [(s, ex, *ex._mask_count_future(pred))
+                for s, ex in ((s, self.next_executor(s))
+                              for s in range(self.n_shards))]
+
+    def count_where(self, pred) -> int:
+        return sum(int(c) for _, _, _, c in self._shard_masks(pred))
+
+    def filtered_rows(self, pred) -> np.ndarray:
+        """Matching GLOBAL row indices, ascending (shards are ordered by
+        start row, so shard order IS row order)."""
+        starts, _ = self._routing
+        parts = []
+        for s, ex, mask, c in self._shard_masks(pred):
+            cnt = int(c)
+            if cnt == 0:
+                continue
+            rows = scan_ops.compact_rows(mask, _pad32(cnt))
+            parts.append(rows[:cnt].cpu().numpy().astype(np.int64)
+                         + int(starts[s]))
+        return np.concatenate(parts) if parts else np.zeros(0, np.int64)
+
+    def batch_where(self, pred) -> tuple[np.ndarray, torch.Tensor]:
+        """Filtered featurization across the shards: each scans its own
+        words, compacts its matches and gathers them LOCALLY; the host only
+        assembles the per-shard results in global row order."""
+        starts, _ = self._routing
+        futs, total = [], 0
+        for s, ex, mask, c in self._shard_masks(pred):
+            cnt = int(c)
+            if cnt == 0:
+                continue
+            rows = scan_ops.compact_rows(mask, _pad32(cnt))
+            futs.append((s, ex._rows_future(rows), rows, cnt))
+            total += cnt
+        out_dim = self.plan.out_dim
+        if not futs:
+            return (np.zeros(0, np.int64),
+                    torch.zeros((0, out_dim), dtype=torch.float32,
+                                device=self.plan.device))
+        rows_out = np.empty(total, np.int64)
+        feats_out = np.empty((total, out_dim), np.float32)
+        off = 0
+        for s, fut, rows, cnt in futs:     # all dispatched; read in order
+            rows_out[off:off + cnt] = \
+                rows[:cnt].cpu().numpy().astype(np.int64) + int(starts[s])
+            feats_out[off:off + cnt] = fut[:cnt].cpu().numpy()
+            off += cnt
+        return rows_out, torch.from_numpy(feats_out).to(self.plan.device)
+
+    def _counts(self, column: str, pred) -> np.ndarray:
+        """Per-shard masked histograms (local words, local mask) summed on
+        the host: K-entry partials, never row-space traffic."""
+        futs = [ex._masked_counts_from(column, mask)
+                for _, ex, mask, _ in self._shard_masks(pred)]
+        return np.sum([f.cpu().numpy() for f in futs], axis=0)
+
+    def groupby_where(self, column: str,
+                      pred) -> tuple[np.ndarray, np.ndarray]:
+        """GROUP BY column COUNT(*) WHERE pred across the shards."""
+        counts = self._counts(column, pred)
+        return (self.executors[0]._dictionary(column).values,
+                counts.astype(np.int64))
+
+    def agg_where(self, pred, column: str, agg: str = "count") -> float:
+        return _agg_from_counts(self.executors[0]._dictionary(column),
+                                self._counts(column, pred), agg)
+
+    def batch(self, row_idx: np.ndarray) -> torch.Tensor:
+        """Routed featurization of arbitrary rows, request order kept.
+        Every shard's launch is dispatched before any result is read."""
+        rows = np.asarray(row_idx, np.int64).reshape(-1)
+        n = rows.shape[0]
+        out_dim = self.plan.out_dim
+        if n == 0:
+            return torch.zeros((0, out_dim), dtype=torch.float32,
+                               device=self.plan.device)
+        lo, hi = int(rows.min()), int(rows.max())
+        if lo < 0 or hi >= self.plan.n_rows:
+            raise IndexError(
+                f"row indices out of range [0, {self.plan.n_rows})")
+        futs = []
+        for s, local, dest in self.route(rows, lo, hi):
+            padded = pad_rows_edge(local, _pad32(local.shape[0]))
+            futs.append((self.next_executor(s)._rows_future(
+                padded.astype(np.int32)), local.shape[0], dest))
+        if len(futs) == 1:
+            return futs[0][0][:n]
+        out = np.empty((n, out_dim), np.float32)
+        for fut, m, dest in futs:
+            out[dest] = fut[:m].cpu().numpy()
+        return torch.from_numpy(out).to(self.plan.device)
 
 
 class FeaturePipeline:

@@ -44,10 +44,11 @@ uses to keep serving through faults:
   an injected fault takes exactly the recovery path a real device error
   takes.
 
-The port's service is single-device: it uses the typed errors, the
-policy, one breaker and the injector. Replicas, failover, hedging and
-device-loss recovery come with sharded serving; until then
-:class:`DeviceHealth` and :class:`DeviceDown` are data only.
+The port's service uses the typed errors, the policy, one breaker per
+launch stream (primaries and replicas, so a retry fails over to another
+stream of its shard) and the injector. Hedged launches and device-loss
+recovery are not ported yet: :class:`DeviceHealth` and
+:class:`DeviceDown` are data only.
 """
 from __future__ import annotations
 

@@ -20,6 +20,26 @@ traffic is the padded (coalesce x bucket) int32 index vector.
 ``stats['bytes_h2d']`` therefore reports INDEX bytes; int32 plans ship
 (C, bucket) code slices through the int32 kernel and account those.
 
+Sharded serving (``sharded=True`` over a packed plan) builds one
+:class:`repro_torch.core.ShardedFeatureExecutor`: one resident word-stream
+shard per IMCU, each on a device of the serve pool (``devices``, default
+the plan's device) with its own CUDA stream. A request's rows are routed
+at submit to the shards that own them (the whole request in one piece
+when one shard owns it all); each shard has its own queue and its own
+``prefetch``-deep in-flight window per launch stream, and the ONE pump
+multiplexes every shard, retiring in global launch order. A retry prefers
+a stream of its shard it has not failed on (replica failover, no
+backoff); breakers are per stream. ``stats['shard_launches']``,
+``['shard_batches']`` and ``['shard_bytes_h2d']`` attribute the work per
+shard. A load monitor (``rebalance_every`` launches, or :meth:`rebalance`)
+replicates a shard whose request-rate EWMA runs ``hot_factor`` x the
+other shards' mean, sheds replicas of cooled shards, and splits the open
+tail shard once appends push it past ``row_budget`` rows; every shard-set
+mutation (:meth:`add_replica`, :meth:`drop_replica`, :meth:`split_tail`)
+runs on the pump thread, between launches, and queued chunks of a split
+tail are re-routed with their tickets intact. ``sharded=True`` over an
+int32 plan keeps one pump and routes the host code slices by IMCU.
+
 ``submit(where=predicate)`` serves the rows a predicate selects: the scan
 kernel finds them on the resident words, and they are pumped like any
 explicit request. ``count_where``, ``filtered_rows``, ``groupby_where`` and
@@ -70,6 +90,7 @@ protocol) drains the queue and joins the pump thread.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from collections import deque
@@ -79,25 +100,27 @@ import numpy as np
 import torch
 
 from repro_torch.core.pipeline import (FeatureExecutor, FeaturePipeline,
-                                       FeaturePlan, pad_rows_edge,
-                                       to_device)
+                                       FeaturePlan, ShardedFeatureExecutor,
+                                       pad_rows_edge, to_device)
 from repro_torch.serve.classes import LatencyHistogram, RequestClass
 from repro_torch.serve.faults import (DeadlineExceeded, FaultInjector,
                                       FaultPolicy, ServeError, StreamBreaker)
 from repro_torch.train.fault import StragglerDetector
 
 DEFAULT_BUCKETS = (64, 256, 1024)
-STREAM = 0      # the token (and injector index) of the one launch stream
 
 
 @dataclass(eq=False)
 class _Chunk:
-    """One bucket-shaped slice of a request, queued for the pump."""
+    """One bucket-shaped slice of a request, queued for its shard."""
     ticket: int
-    rows: np.ndarray        # raw (unpadded) row indices
+    rows: np.ndarray        # raw (unpadded) SHARD-LOCAL row indices
     n: int                  # valid rows (== rows.shape[0])
     bucket: int             # static launch shape this chunk pads to
-    dest: int               # first row of this chunk in the request output
+    shard: int              # owning shard (0 for unsharded services)
+    # destination of these rows in the request output: an int start for a
+    # contiguous run, or an explicit position vector for routed splits
+    dest: int | np.ndarray = 0
     t_enq: float = 0.0
     # -- fault-recovery state (pump thread only) --
     attempts: int = 0               # launches tried so far
@@ -116,6 +139,7 @@ class _Flight:
     event: torch.cuda.Event | None  # recorded after the copy (None on CPU)
     parts: list                     # (ticket, n, dest, row_off) per chunk
     group: list                     # the _Chunks this launch covers
+    ex: FeatureExecutor             # the stream that launched it
     t0: float                       # dispatch time (perf_counter)
     ready_at: float = 0.0           # injected-stall retire gate
 
@@ -126,7 +150,10 @@ class FeatureService:
     def __init__(self, plan: FeaturePlan | FeaturePipeline, *,
                  prefetch: int = 2,
                  buckets: tuple[int, ...] = DEFAULT_BUCKETS,
-                 coalesce: int = 4, linger_us: float = 0.0,
+                 sharded: bool = False, coalesce: int = 4,
+                 linger_us: float = 0.0, devices=None,
+                 rebalance_every: int = 0, row_budget: int | None = None,
+                 hot_factor: float = 4.0, max_replicas: int | None = None,
                  faults: FaultInjector | None = None,
                  fault_policy: FaultPolicy | None = None,
                  classes: tuple[RequestClass, ...] | None = None):
@@ -138,12 +165,40 @@ class FeatureService:
             raise ValueError(f"bad bucket sizes {buckets!r}")
         if linger_us < 0:
             raise ValueError("linger_us must be >= 0")
+        if rebalance_every < 0:
+            raise ValueError("rebalance_every must be >= 0")
+        if row_budget is not None and row_budget < 32:
+            raise ValueError("row_budget must be >= 32 (one alignment word)")
+        if hot_factor < 1.0:
+            raise ValueError("hot_factor must be >= 1 (hot means above mean)")
+        if (rebalance_every or row_budget) and not (sharded and plan.packed):
+            raise ValueError("adaptive shard management (rebalance_every / "
+                             "row_budget) needs sharded=True over a packed "
+                             "plan")
         if coalesce < 1:
             raise ValueError("coalesce must be >= 1")
         self.plan = plan
         self.packed = plan.packed
         self.prefetch = prefetch
-        self._executor = FeatureExecutor(plan, prefetch=prefetch)
+        self.sharded = sharded
+        if sharded and self.packed:
+            # one resident word-stream shard per IMCU, each with its own
+            # executor (and CUDA stream), queue and in-flight windows, all
+            # fed by the one pump
+            self._sharded_ex = ShardedFeatureExecutor(
+                plan, prefetch=prefetch, devices=devices)
+            self._executor = self._sharded_ex.executors[0]
+            self._n_shards = self._sharded_ex.n_shards
+        else:
+            # ONE executor; int32 sharding only changes where the host code
+            # slices come from
+            self._sharded_ex = None
+            self._executor = FeatureExecutor(plan, prefetch=prefetch)
+            self._n_shards = 1
+        if sharded and not self.packed:
+            self._shard_bounds = plan.imcu_bounds()
+            self._shards = plan.imcu_shards()
+            self._starts = np.array([b[0] for b in self._shard_bounds])
         self.buckets = tuple(sorted(buckets))
         if self.packed:
             # word-aligned buckets keep the range iterator's discipline and
@@ -153,9 +208,14 @@ class FeatureService:
         self.coalesce = coalesce if self.packed else 1
         self._linger_s = linger_us * 1e-6
         # -- pump-shared state: everything below is guarded by _lock --
-        self._queue: deque[_Chunk] = deque()
-        self._inflight: deque[_Flight] = deque()
-        self._busy = False                  # a launch/retire is mid-flight
+        # one queue and one in-flight window PER SHARD; a window entry is
+        # (global launch sequence number, _Flight)
+        self._queues: list[deque[_Chunk]] = [deque()
+                                             for _ in range(self._n_shards)]
+        self._inflights: list[deque] = [deque()
+                                        for _ in range(self._n_shards)]
+        self._busy = [0] * self._n_shards   # launches/retires mid-flight
+        self._seq = 0                       # global launch order for retires
         self._chunks_total: dict[int, int] = {}
         self._chunks_done: dict[int, int] = {}
         self._ticket_rows: dict[int, int] = {}
@@ -175,15 +235,17 @@ class FeatureService:
         self._errors: dict[int, ServeError] = {}   # failed-ticket results
         self._dead: set[int] = set()    # failed tickets: drop their chunks
         self._deadlines: dict[int, float] = {}     # ticket -> perf_counter
-        self._breaker = StreamBreaker()
-        self._straggler = StragglerDetector(
-            threshold=self._policy.straggler_threshold,
-            warmup=self._policy.straggler_warmup)
+        # breakers key on the executor's stream token, never id(): a
+        # dropped replica's id() can be recycled for a fresh executor
+        self._breakers: dict[int, StreamBreaker] = {}
+        self._stream_rr = [0] * self._n_shards     # healthy-stream cursor
+        self._stragglers = [self._new_straggler()
+                            for _ in range(self._n_shards)]
         # -- pump supervisor state (journal: what the pump held when it
         #    died, so a restart re-enqueues instead of losing tickets) --
         self._pump_restarts_used = 0
-        self._pump_taken: list[_Chunk] | None = None   # taken, not in flight
-        self._pump_retiring: _Flight | None = None
+        self._pump_taken: tuple | None = None      # (shard, group) pre-launch
+        self._pump_retiring: tuple | None = None   # (shard, _Flight)
         self._retire_prog = 0       # parts fully retired of current flight
         # -- latency accounting: the deque is a recent-8192 window; the
         #    histograms see every completed ticket and back
@@ -203,18 +265,35 @@ class FeatureService:
             name: {"requests": 0, "completed": 0, "failed": 0, "rows": 0,
                    "hist": LatencyHistogram()}
             for name in self._classes}
+        # -- adaptive shard management state --
+        self.rebalance_every = rebalance_every
+        self.row_budget = row_budget
+        self.hot_factor = hot_factor
+        self.max_replicas = max_replicas
+        self._mon_alpha = 0.5           # EWMA weight per monitor tick
+        self._mon_ewma = [0.0] * self._n_shards
+        self._mon_last = [0] * self._n_shards
+        self._mon_mark = 0              # launches at the last monitor tick
+        self._route_gen = 0             # bumped on every routing-table swap
+        self._admin_q: deque = deque()  # (fn, event, result_box) for the pump
         self.stats = {"requests": 0, "rows": 0, "padded_rows": 0,
                       "batches": 0, "launches": 0, "max_inflight": 0,
                       "latency_s_total": 0.0, "completed": 0,
                       "latency_samples_total": 0,
-                      "bytes_h2d": 0, "filtered_requests": 0,
-                      "retries": 0, "timeouts": 0, "failed_tickets": 0,
-                      "unhealthy_shards": 0, "stragglers": 0,
-                      "pump_restarts": 0}
+                      "packed_ranges": 0, "bytes_h2d": 0,
+                      "split_requests": 0, "filtered_requests": 0,
+                      "retries": 0, "failovers": 0, "timeouts": 0,
+                      "failed_tickets": 0, "unhealthy_shards": 0,
+                      "stragglers": 0, "pump_restarts": 0,
+                      "rebalances": 0, "replicas_added": 0,
+                      "replicas_dropped": 0, "shard_splits": 0,
+                      "shard_launches": [0] * self._n_shards,
+                      "shard_batches": [0] * self._n_shards,
+                      "shard_bytes_h2d": [0] * self._n_shards}
         # conditions over ONE lock, so each event wakes only the threads
         # that care:
         #   _work — the pump sleeps here; submits that queued work (and
-        #           pause/shutdown/drain-flush) notify
+        #           pause/shutdown/drain-flush/admin) notify
         #   _cv   — result()/poll() waiters; notified when a ticket lands
         #   _idle — drain() waiters; notified when the pump goes idle
         self._lock = threading.Lock()
@@ -233,6 +312,30 @@ class FeatureService:
     def __exit__(self, *exc) -> None:
         self.shutdown()
 
+    @property
+    def n_shards(self) -> int:
+        """Shards this service launches through (1 unsharded)."""
+        return self._n_shards
+
+    @property
+    def replicas(self) -> list[int]:
+        """Replica count per shard (all zeros unsharded)."""
+        if self._sharded_ex is None:
+            return [0] * self._n_shards
+        return [len(r) for r in self._sharded_ex.replicas]
+
+    @property
+    def monitor_ewma(self) -> list[float]:
+        """Per-shard request-rate EWMA — the load monitor's current view."""
+        return list(self._mon_ewma)
+
+    @property
+    def shard_starts(self) -> list[int]:
+        """Routing-table row starts per shard (grows on tail splits)."""
+        if self._sharded_ex is None:
+            return [0]
+        return list(self._sharded_ex._routing[1])
+
     def shutdown(self, drain: bool = True) -> None:
         """Stop the pump thread and join it.
 
@@ -243,8 +346,10 @@ class FeatureService:
         """
         with self._lock:
             if not drain:
-                dropped = {ch.ticket for ch in self._queue}
-                self._queue.clear()
+                dropped = set()
+                for q in self._queues:
+                    dropped.update(ch.ticket for ch in q)
+                    q.clear()
                 for t in dropped:
                     self._chunks_total.pop(t, None)
                     self._chunks_done.pop(t, None)
@@ -282,55 +387,111 @@ class FeatureService:
             self._paused = False
             self._work.notify_all()
 
-    # -- fault tolerance: the breaker, stragglers, failure handling -----------------
-    @property
-    def unhealthy(self) -> list[int]:
-        """Shards whose launch stream's breaker is OPEN right now: ``[0]``
-        or ``[]`` (one shard, one stream)."""
-        with self._lock:
-            return [0] if self._breaker.is_open(
-                self._policy.breaker_fails, time.perf_counter()) else []
+    # -- fault tolerance: breakers, stream health, failure handling -----------------
+    def _new_straggler(self) -> StragglerDetector:
+        p = self._policy
+        return StragglerDetector(threshold=p.straggler_threshold,
+                                 warmup=p.straggler_warmup)
 
-    def _close_breaker_locked(self, now: float) -> None:
+    def _breaker(self, ex: FeatureExecutor) -> StreamBreaker:
+        b = self._breakers.get(ex.stream_token)
+        if b is None:
+            b = self._breakers[ex.stream_token] = StreamBreaker()
+        return b
+
+    def _close_breaker_locked(self, ex: FeatureExecutor, now: float) -> None:
         """A round trip proved the stream healthy: close its breaker, and
         when it was TRIPPED, give back its ``unhealthy_shards`` mark (a
         gauge of currently-unhealthy streams). A success while the breaker
         is still OPEN does not close it: the forced launches through an
         open breaker are not probes — the breaker holds until the cooldown
         makes the stream half-open and a success there is the probe."""
-        b = self._breaker
-        if b.is_open(self._policy.breaker_fails, now):
+        b = self._breakers.get(ex.stream_token)
+        if b is None or b.is_open(self._policy.breaker_fails, now):
             return
         if b.fails >= self._policy.breaker_fails:
             self.stats["unhealthy_shards"] -= 1
         b.reset()
 
-    def _strike_locked(self, now: float) -> bool:
-        """One failure (or straggler flag) on the stream; True when this
-        strike TRIPPED the breaker."""
+    def _discard_breaker_locked(self, ex: FeatureExecutor) -> None:
+        """The stream leaves the shard set (a dropped replica): forget its
+        breaker, and give back its gauge mark when it left unhealthy."""
+        b = self._breakers.pop(ex.stream_token, None)
+        if b is not None and b.fails >= self._policy.breaker_fails:
+            self.stats["unhealthy_shards"] -= 1
+
+    def _shard_streams(self, s: int) -> list[FeatureExecutor]:
+        return (self._sharded_ex.stream_executors(s)
+                if self._sharded_ex is not None else [self._executor])
+
+    def _healthy_streams(self, s: int, now: float) -> list[FeatureExecutor]:
+        thr = self._policy.breaker_fails
+        return [ex for ex in self._shard_streams(s)
+                if not self._breaker(ex).is_open(thr, now)]
+
+    @property
+    def unhealthy(self) -> list[int]:
+        """Shards with at least one OPEN-breaker launch stream right now —
+        what the monitor's failover policy re-replicates around."""
+        with self._lock:
+            now = time.perf_counter()
+            return [s for s in range(self._n_shards)
+                    if len(self._healthy_streams(s, now))
+                    < len(self._shard_streams(s))]
+
+    def _pick_stream(self, s: int, avoid: frozenset):
+        """Healthy-stream selection with read fan-out (pump thread, lock
+        held): round-robin over the shard's closed-breaker streams; a
+        stream past its cooldown is half-open and its next pick is the
+        probe. ``avoid`` (stream tokens a retrying group failed on) is
+        left out unless nothing else is left, so a retry prefers a copy it
+        has NOT watched fail. Returns (executor, stream index)."""
+        streams = self._shard_streams(s)
+        if len(streams) == 1 and not avoid:
+            return streams[0], 0
+        now = time.perf_counter()
+        thr = self._policy.breaker_fails
+        idx = list(range(len(streams)))
+        healthy = [i for i in idx
+                   if not self._breaker(streams[i]).is_open(thr, now)]
+        pool = ([i for i in healthy
+                 if streams[i].stream_token not in avoid]
+                or healthy
+                or [i for i in idx if streams[i].stream_token not in avoid]
+                or idx)
+        self._stream_rr[s] += 1
+        i = pool[self._stream_rr[s] % len(pool)]
+        return streams[i], i
+
+    def _strike_locked(self, ex: FeatureExecutor, now: float) -> bool:
+        """One failure (or straggler flag) on a stream; True when this
+        strike TRIPPED its breaker."""
         p = self._policy
-        if self._breaker.strike(p.breaker_fails, p.breaker_cooldown_s, now):
+        if self._breaker(ex).strike(p.breaker_fails, p.breaker_cooldown_s,
+                                    now):
             self.stats["unhealthy_shards"] += 1
             return True
         return False
 
-    def _observe_latency_locked(self, dt: float, now: float) -> None:
-        """Feed the straggler detector one launch round-trip time; a
-        flagged launch that also clears the absolute floor
-        (``straggler_min_s``) strikes the breaker, otherwise the round
-        trip closes it."""
-        flagged = self._straggler.observe(self.stats["launches"], dt)
+    def _observe_latency_locked(self, s: int, ex: FeatureExecutor,
+                                dt: float, now: float) -> None:
+        """Feed shard ``s``'s straggler detector one launch round-trip
+        time; a flagged launch that also clears the absolute floor
+        (``straggler_min_s``) strikes the stream's breaker, otherwise the
+        round trip closes it."""
+        flagged = self._stragglers[s].observe(
+            self.stats["shard_launches"][s], dt)
         if flagged and dt >= self._policy.straggler_min_s:
             self.stats["stragglers"] += 1
-            self._strike_locked(now)
+            self._strike_locked(ex, now)
         else:
-            self._close_breaker_locked(now)
+            self._close_breaker_locked(ex, now)
 
     def _fail_ticket_locked(self, ticket: int, err: ServeError, *,
                             timeout: bool = False) -> None:
         """Resolve ``ticket`` to a typed error (lock held): the ledger
         entries go, the error is retrievable via poll/result/collect, and
-        chunks of this ticket still queued are dropped on sight
+        chunks of this ticket still queued anywhere are dropped on sight
         (``_dead``). Idempotent for already-resolved tickets."""
         if ticket not in self._chunks_total:
             return
@@ -350,15 +511,17 @@ class FeatureService:
             self.stats["timeouts"] += 1
         self._cv.notify_all()
 
-    def _handle_launch_failure(self, group: list[_Chunk],
-                               err: Exception) -> None:
-        """A launch or retire raised (lock held, pump thread): strike the
-        breaker, then re-enqueue the group at the head of the queue after
-        capped exponential backoff — the retry re-launches the same
-        kernel. Chunks out of retries resolve their tickets to a
-        :class:`ServeError` chained to ``err``; nothing else is touched."""
+    def _handle_launch_failure(self, s: int, group: list[_Chunk],
+                               ex: FeatureExecutor, err: Exception) -> None:
+        """A launch or retire raised (lock held, pump thread): only this
+        group's chunks are touched. Strike the stream's breaker, then
+        re-enqueue the group at the head of its shard's queue — at once
+        when another healthy stream of the shard can take the retry
+        (replica failover), else after capped exponential backoff; the
+        retry re-launches the same kernel. Chunks out of retries resolve
+        their tickets to a :class:`ServeError` chained to ``err``."""
         now = time.perf_counter()
-        self._strike_locked(now)
+        self._strike_locked(ex, now)
         retry, failed = [], []
         for ch in group:
             (retry if ch.attempts + 1 <= self._policy.max_retries
@@ -366,36 +529,51 @@ class FeatureService:
         for ch in failed:
             e = ServeError(
                 f"request failed after {ch.attempts + 1} launch attempts "
-                f"on shard 0: {err!r}", ticket=ch.ticket, shard=0,
+                f"on shard {s}: {err!r}", ticket=ch.ticket, shard=s,
                 attempts=ch.attempts + 1)
             e.__cause__ = err
             self._fail_ticket_locked(ch.ticket, e)
         if not retry:
             return
+        failed_tok = ex.stream_token
+        alt = any(e.stream_token != failed_tok
+                  for e in self._healthy_streams(s, now))
         for ch in reversed(retry):
             ch.attempts += 1
-            ch.avoid = ch.avoid | {STREAM}
-            ch.not_before = now + self._policy.backoff_for(ch.attempts)
-            self._queue.appendleft(ch)
+            ch.avoid = ch.avoid | {failed_tok}
+            ch.not_before = now if alt \
+                else now + self._policy.backoff_for(ch.attempts)
+            self._queues[s].appendleft(ch)
         self.stats["retries"] += 1
         self._work.notify_all()
 
     # -- requests -------------------------------------------------------------------
+    def _route(self, rows: np.ndarray, lo: int, hi: int):
+        """(shard, local_rows, dest) pieces of a request's rows: the whole
+        request in shard 0 on a one-shard service (dest None = in order),
+        else bucketed by owning IMCU — the clustered fast path (all rows in
+        one shard, the per-user block lookup) builds no index."""
+        if self._n_shards == 1:
+            return [(0, rows, None)]
+        return self._sharded_ex.route(rows, lo, hi)
+
     def submit(self, rows: np.ndarray | None = None, *, where=None,
                deadline_ms: float | None = None,
                klass: str = "default") -> int:
         """Enqueue a featurization request; returns a ticket for the result.
 
-        Only queues: the pump picks the chunks up, coalesces them with other
-        queued work and launches — the caller goes on submitting while the
-        device gathers. ``deadline_ms`` bounds the request's time in the
+        Only queues: the rows are routed to the shards that own them (one
+        shard unsharded), and the pump picks the chunks up, coalesces them
+        with other queued work of the same shard and launches — the caller
+        goes on submitting while the device gathers. ``deadline_ms`` bounds the request's time in the
         queue: chunks still QUEUED once it expires are dropped before launch
         and the ticket resolves to :class:`DeadlineExceeded` (chunks already
         in flight retire normally).
 
         ``where=<predicate>`` (instead of ``rows``) is the pushdown form:
         the matching rows are found by the scan kernel over the resident
-        words (:meth:`FeatureExecutor.filtered_rows`) and then pumped
+        words (:meth:`FeatureExecutor.filtered_rows`, a scan per shard on a
+        sharded service) and then pumped
         through the same coalescing launch path as explicit rows — "serve
         features WHERE ..." as one ticket. An empty selection resolves at
         once to a (0, out_dim) result without reaching the pump.
@@ -425,52 +603,76 @@ class FeatureService:
         rows = np.asarray(rows, dtype=np.int64).reshape(-1)
         if rows.size == 0:
             raise ValueError("empty request")
-        if int(rows.min()) < 0 or int(rows.max()) >= self.plan.n_rows:
+        lo, hi = int(rows.min()), int(rows.max())
+        if lo < 0 or hi >= self.plan.n_rows:
             raise IndexError(f"row indices out of range [0, {self.plan.n_rows})")
+        # routing, chunking and the alignment scan are pure functions of
+        # the request, done OUTSIDE the lock; a pump-side split may swap
+        # the routing table meanwhile, and the generation check below
+        # catches that and routes again (a chunk built against stale bounds
+        # would land on a shard that no longer owns its rows)
         cap = self.buckets[-1]
-        pieces, padded = [], 0
-        for start in range(0, rows.shape[0], cap):
-            chunk = rows[start:start + cap]
-            bucket = self._bucket(chunk.shape[0])
-            padded += bucket - chunk.shape[0]
-            pieces.append(_Chunk(0, chunk, chunk.shape[0], bucket, start))
-        with self._lock:
-            self._check_pump()
-            if self._shutdown:
-                raise RuntimeError("service is shut down")
-            ticket = self._next_ticket
-            self._next_ticket += 1
-            now = time.perf_counter()
-            self._submitted_at[ticket] = now
-            if deadline_ms is not None:
-                self._deadlines[ticket] = now + deadline_ms / 1e3
-            self.stats["requests"] += 1
-            self.stats["filtered_requests"] += filtered
-            self.stats["rows"] += rows.size
-            self.stats["padded_rows"] += padded
-            self._chunks_total[ticket] = len(pieces)
-            self._ticket_rows[ticket] = rows.size
-            self._ticket_class[ticket] = klass
-            cs = self._class_stats[klass]
-            cs["requests"] += 1
-            cs["rows"] += rows.size
-            q = self._queue
-            n0 = len(q)
-            for ch in pieces:
-                ch.ticket = ticket
-                ch.t_enq = now
-                ch.klass = klass
-                q.append(ch)
-            # wake the parked pump when the queue went empty -> nonempty,
-            # when this submit completed a coalescing group, or when it
-            # OUTRANKS the queue's head (a lingering low-priority group
-            # must not make a fresh high-priority chunk wait out its
-            # hold); chunks landing mid-group ride the pending tick
-            preempt = n0 > 0 and rc.priority > \
-                self._classes[q[0].klass].priority
-            if n0 == 0 or preempt or n0 < self.coalesce <= len(q):
-                self._work.notify_all()
-            return ticket
+        while True:
+            gen = self._route_gen
+            pieces, padded, aligned = [], 0, 0
+            routed = self._route(rows, lo, hi)
+            for shard, local, dest in routed:
+                for start in range(0, local.shape[0], cap):
+                    chunk = local[start:start + cap]
+                    bucket = self._bucket(chunk.shape[0])
+                    padded += bucket - chunk.shape[0]
+                    if self.packed and self._aligned_range(chunk):
+                        aligned += 1
+                    d = start if dest is None else dest[start:start + cap]
+                    pieces.append(_Chunk(0, chunk, chunk.shape[0], bucket,
+                                         shard, d))
+            with self._lock:
+                self._check_pump()
+                if self._shutdown:
+                    raise RuntimeError("service is shut down")
+                if self._route_gen != gen:
+                    continue            # routing swapped mid-build: redo
+                ticket = self._next_ticket
+                self._next_ticket += 1
+                now = time.perf_counter()
+                self._submitted_at[ticket] = now
+                if deadline_ms is not None:
+                    self._deadlines[ticket] = now + deadline_ms / 1e3
+                self.stats["requests"] += 1
+                self.stats["filtered_requests"] += filtered
+                self.stats["rows"] += rows.size
+                self.stats["padded_rows"] += padded
+                self.stats["packed_ranges"] += aligned
+                if len(routed) > 1:
+                    self.stats["split_requests"] += 1
+                self._chunks_total[ticket] = len(pieces)
+                self._ticket_rows[ticket] = rows.size
+                self._ticket_class[ticket] = klass
+                cs = self._class_stats[klass]
+                cs["requests"] += 1
+                cs["rows"] += rows.size
+                before = {}
+                for ch in pieces:
+                    ch.ticket = ticket
+                    ch.t_enq = now
+                    ch.klass = klass
+                    q = self._queues[ch.shard]
+                    before.setdefault(ch.shard, len(q))
+                    q.append(ch)
+                for s, n0 in before.items():
+                    # wake the parked pump when a shard queue went empty ->
+                    # nonempty, when this submit completed a coalescing
+                    # group, or when it OUTRANKS the queue's head (a
+                    # lingering low-priority group must not make a fresh
+                    # high-priority chunk wait out its hold); chunks
+                    # landing mid-group ride the pending tick
+                    q = self._queues[s]
+                    preempt = n0 > 0 and rc.priority > \
+                        self._classes[q[0].klass].priority
+                    if n0 == 0 or preempt or n0 < self.coalesce <= len(q):
+                        self._work.notify_all()
+                        break
+                return ticket
 
     def _resolved_empty_ticket(self, klass: str) -> int:
         """A filtered request that matched no row: a ticket whose (0, F)
@@ -499,6 +701,43 @@ class FeatureService:
             if n <= b:
                 return b
         return self.buckets[-1]
+
+    def _slice_padded(self, rows: np.ndarray, bucket: int) -> np.ndarray:
+        """Host work for one int32 chunk: fancy-index + right-pad to bucket."""
+        rows = pad_rows_edge(rows, bucket)
+        if self.sharded and not self.packed:
+            return self._gather_sharded_codes(rows)
+        return self.plan.host_codes(rows)
+
+    def _gather_sharded_codes(self, rows: np.ndarray) -> np.ndarray:
+        """int32 sharding: route rows to their IMCU partitions and gather
+        partition-local code slices — only the HOST side is partitioned,
+        one pump serves every launch. Rows appended after the plan was
+        compiled lie past the last IMCU bound and come from the plan's own
+        code matrix tail."""
+        out = np.empty((len(self.plan.plans), rows.shape[0]), np.int32)
+        tail_start = self._shard_bounds[-1][1]
+        tail = rows >= tail_start
+        if tail.any():
+            out[:, tail] = self.plan.codes_matrix[:, rows[tail]]
+        rows_in, (idx_in,) = rows[~tail], np.nonzero(~tail)
+        shard_of = np.searchsorted(self._starts, rows_in, side="right") - 1
+        for s in np.unique(shard_of):
+            mask = shard_of == s
+            local = rows_in[mask] - self._shard_bounds[s][0]
+            out[:, idx_in[mask]] = self._shards[s].codes_matrix[:, local]
+        return out
+
+    @staticmethod
+    def _aligned_range(rows: np.ndarray) -> bool:
+        """True for a word-aligned contiguous run (the scan pattern),
+        counted in ``stats['packed_ranges']``; it is served by the same
+        rows launch as any row set. The O(1) checks gate the O(n) one:
+        this runs on every submit."""
+        if rows.shape[0] == 0 or int(rows[0]) % 32 or \
+                int(rows[-1]) - int(rows[0]) != rows.shape[0] - 1:
+            return False
+        return bool((np.diff(rows) == 1).all())
 
     # -- the pump -------------------------------------------------------------------
     def _coalesce_for(self, rc: RequestClass) -> int:
@@ -564,39 +803,65 @@ class FeatureService:
         return head.t_enq + self._linger_for(rc) - now
 
     def _all_idle(self) -> bool:
-        return not (self._queue or self._inflight or self._busy)
+        return not any(q or i or b for q, i, b in
+                       zip(self._queues, self._inflights, self._busy))
+
+    def _streams(self, s: int) -> int:
+        """Launch streams serving shard s (1 + replicas). Each stream gets
+        its own ``prefetch``-deep in-flight window, so a hot shard's window
+        grows with its replicas."""
+        return self._sharded_ex.n_streams(s) if self._sharded_ex else 1
 
     def _pick_action(self):
-        """The pump's next action (lock held): ``("launch", None)`` when the
-        in-flight window has room and the selected class's group is ready,
-        else ``("retire", None)`` for the oldest launch, ``("wait",
-        timeout)`` or ``("exit", None)``. A lingering partial group or a
-        queue whose every class is in retry backoff launches nothing, but
-        its deadline bounds the wait."""
+        """The pump's next action (lock held): ``("launch", shard)`` for
+        the first shard whose window has room and whose selected class's
+        group is ready; else ``("retire", shard)`` for the OLDEST launch in
+        flight, from a shard whose full window dams its queue first;
+        ``("wait", timeout)`` or ``("exit", None)``. A lingering partial
+        group or a queue whose every class is in retry backoff launches
+        nothing, but its deadline bounds the wait."""
         held = self._paused and not self._shutdown
-        linger = None
-        queue = self._queue
-        if queue and not held and len(self._inflight) < self.prefetch:
-            now = time.perf_counter()
+        linger_min = None
+        now = time.perf_counter()
+        for s in range(self._n_shards):
+            queue = self._queues[s]
+            if not queue or held:
+                continue
+            if len(self._inflights[s]) >= self.prefetch * self._streams(s):
+                continue
             klass, head, hold = self._select_class(queue, now)
             if klass is None:
-                linger = hold
-            else:
-                rc = self._classes[klass]
-                if self._linger_for(rc) > 0 and self._coalesce_for(rc) > 1 \
-                        and not self._shutdown and not self._flushes:
-                    left = self._linger_left(queue, klass, head, now)
-                    if left <= 0:
-                        return "launch", None
-                    linger = left
-                else:
-                    return "launch", None
-        if self._inflight and (linger is None
-                               or len(self._inflight) >= self.prefetch):
-            return "retire", None
-        if self._shutdown and self._all_idle():
+                linger_min = hold if linger_min is None \
+                    else min(linger_min, hold)
+                continue
+            rc = self._classes[klass]
+            if self._linger_for(rc) > 0 and self._coalesce_for(rc) > 1 \
+                    and not self._shutdown and not self._flushes:
+                left = self._linger_left(queue, klass, head, now)
+                if left > 0:
+                    linger_min = left if linger_min is None \
+                        else min(linger_min, left)
+                    continue
+            return "launch", s
+        oldest, oldest_full = None, None
+        for s in range(self._n_shards):
+            infl = self._inflights[s]
+            if not infl:
+                continue
+            seq = infl[0][0]
+            if oldest is None or seq < self._inflights[oldest][0][0]:
+                oldest = s
+            if len(infl) >= self.prefetch * self._streams(s) and (
+                    oldest_full is None
+                    or seq < self._inflights[oldest_full][0][0]):
+                oldest_full = s
+        if oldest_full is not None:
+            return "retire", oldest_full
+        if oldest is not None and linger_min is None:
+            return "retire", oldest
+        if self._shutdown and self._all_idle() and not self._admin_q:
             return "exit", None
-        return "wait", linger
+        return "wait", linger_min
 
     def _pump_main(self) -> None:
         """Pump SUPERVISOR (the thread target): run the pump loop, and
@@ -614,6 +879,7 @@ class FeatureService:
                     if self._pump_restarts_used >= \
                             self._policy.pump_restarts:
                         self._pump_error = e
+                        self._fail_admin(e)
                         self._notify_everyone()
                         return
                     self._pump_restarts_used += 1
@@ -622,38 +888,45 @@ class FeatureService:
 
     def _recover_pump_locked(self) -> None:
         """Restore the ledger's invariants after a pump crash (lock held):
-        clear the busy marker, and put back at the head of the queue, in
-        their order, a group the dying pump had taken but not recorded in
-        flight, and the not-yet-distributed chunks of a retire it was
+        clear the busy markers, and put back at the head of its shard's
+        queue, in order, a group the dying pump had taken but not recorded
+        in flight, and the not-yet-distributed chunks of a retire it was
         part way through (``_retire_prog`` marks where it stopped)."""
-        self._busy = False
+        self._busy = [0] * self._n_shards
         if self._pump_taken is not None:
-            for ch in reversed(self._pump_taken):
-                self._queue.appendleft(ch)
+            s, group = self._pump_taken
+            for ch in reversed(group):
+                self._queues[s].appendleft(ch)
             self._pump_taken = None
-        fl = self._pump_retiring
-        if fl is not None:
+        if self._pump_retiring is not None:
+            s, fl = self._pump_retiring
             for ch in reversed(fl.group[self._retire_prog:]):
                 if ch.ticket in self._chunks_total:
-                    self._queue.appendleft(ch)
+                    self._queues[s].appendleft(ch)
             self._pump_retiring = None
         self._work.notify_all()
 
     def _pump_loop(self) -> None:
-        """Coalesce -> launch -> retire until shutdown, with a
-        ``prefetch``-deep in-flight window. The only thread that launches
-        kernels or waits on their results; launches are asynchronous, so
-        the device works while the pump prepares the next group.
+        """ONE pump multiplexes every shard: coalesce -> launch -> retire
+        until shutdown, with a ``prefetch``-deep in-flight window per
+        launch stream. The only thread that launches kernels or waits on
+        their results; launches are asynchronous, each on its stream's own
+        CUDA stream, so the shards' gathers overlap on the device while the
+        pump prepares the next group.
 
-        Fault isolation: dispatching a launch and waiting on its result are
-        guarded per launch group — an exception there goes to
-        :meth:`_handle_launch_failure` (retry with backoff, else a
-        per-ticket ServeError) and the loop goes on; an exception in the
-        loop's own logic lands in the supervisor (:meth:`_pump_main`).
+        Shard-set mutations (the admin queue) run at the top of each tick,
+        when no launch or retire is mid-flight, so a split or a replica
+        swap never races a dispatch. Fault isolation: dispatching a launch
+        and waiting on its result are guarded per launch group — an
+        exception there goes to :meth:`_handle_launch_failure` (retry,
+        failover or backoff, else a per-ticket ServeError) and the loop
+        goes on; an exception in the loop's own logic lands in the
+        supervisor (:meth:`_pump_main`).
         """
         while True:
             with self._lock:
                 while True:
+                    self._drain_admin()
                     action, arg = self._pick_action()
                     if action != "wait":
                         break
@@ -662,8 +935,9 @@ class FeatureService:
                     self._work.wait(timeout=arg)
                 if action == "exit":
                     return
+                s = arg
                 if action == "launch":
-                    group = self._take_group(self._queue,
+                    group = self._take_group(self._queues[s],
                                              time.perf_counter())
                     if not group:
                         # the whole head group was evicted (failed or
@@ -671,41 +945,57 @@ class FeatureService:
                         if self._all_idle():
                             self._idle.notify_all()
                         continue
-                    self._pump_taken = group
+                    self._pump_taken = (s, group)
+                    ex, stream = self._pick_stream(s, group[0].avoid)
+                    if group[0].avoid and \
+                            ex.stream_token not in group[0].avoid:
+                        # a retry reached a stream it had not failed on
+                        self.stats["failovers"] += 1
                 else:
-                    fl = self._inflight.popleft()
-                    group = fl.group
-                    self._pump_retiring = fl
+                    _, fl = self._inflights[s].popleft()
+                    group, ex = fl.group, fl.ex
+                    self._pump_retiring = (s, fl)
                     self._retire_prog = 0
-                self._busy = True
+                self._busy[s] += 1
             try:
                 if action == "launch":
-                    fl, nbytes = self._launch(group)
+                    fl, nbytes = self._launch(group, s, ex, stream)
                 else:
                     arr, dt = self._await_flight(fl)
             except Exception as e:
                 with self._lock:
-                    self._handle_launch_failure(group, e)
+                    self._handle_launch_failure(s, group, ex, e)
                     self._pump_taken = self._pump_retiring = None
-                    self._busy = False
+                    self._busy[s] -= 1
                     if self._all_idle():
                         self._idle.notify_all()
                 continue
             with self._lock:
                 if action == "launch":
-                    self._inflight.append(fl)
+                    self._seq += 1
+                    self._inflights[s].append((self._seq, fl))
                     self._pump_taken = None
                     self.stats["launches"] += 1
                     self.stats["batches"] += len(fl.parts)
                     self.stats["bytes_h2d"] += nbytes
+                    self.stats["shard_launches"][s] += 1
+                    self.stats["shard_batches"][s] += len(fl.parts)
+                    self.stats["shard_bytes_h2d"][s] += nbytes
                     self.stats["max_inflight"] = max(
-                        self.stats["max_inflight"], len(self._inflight))
+                        self.stats["max_inflight"],
+                        sum(len(i) for i in self._inflights))
+                    self._busy[s] -= 1
+                    if self.rebalance_every and (
+                            self.stats["launches"] - self._mon_mark
+                            >= self.rebalance_every):
+                        self._rebalance_locked()
                 else:
-                    self._observe_latency_locked(dt, time.perf_counter())
+                    self._observe_latency_locked(s, ex, dt,
+                                                 time.perf_counter())
                     if self._retire(arr, fl.parts):
                         self._cv.notify_all()
                     self._pump_retiring = None
-                self._busy = False
+                    self._busy[s] -= 1
                 if self._all_idle():
                     self._idle.notify_all()
 
@@ -735,7 +1025,7 @@ class FeatureService:
                 queue.popleft()
                 self._fail_ticket_locked(ch.ticket, DeadlineExceeded(
                     f"ticket {ch.ticket} missed its deadline before launch",
-                    ticket=ch.ticket, shard=0), timeout=True)
+                    ticket=ch.ticket, shard=ch.shard), timeout=True)
                 continue
             if len(group) >= cap:
                 break
@@ -753,53 +1043,58 @@ class FeatureService:
         queue.extend(rest)
         return group
 
-    def _launch(self, group: list[_Chunk]) -> tuple[_Flight, int]:
-        """Dispatch ONE launch for a coalesced group (pump thread only);
-        returns the flight and the host->device bytes it shipped.
+    def _launch(self, group: list[_Chunk], s: int, ex: FeatureExecutor,
+                stream: int) -> tuple[_Flight, int]:
+        """Dispatch ONE launch for a coalesced group on ``ex``, the shard-
+        ``s`` stream :meth:`_pick_stream` chose (pump thread only); returns
+        the flight and the host->device bytes it shipped.
 
         The chaos hook fires first, before any dispatch, so an injected
         fault or delay lands where a real device error would; its return
         value is the launch's injected stall, which gates the flight's
         retire (``ready_at``).
 
-        Packed plans: a flat (coalesce * bucket,) int32 index vector —
-        padded to the full coalesce width so every launch of a bucket has
-        one shape — into the packed rows kernel; the indices are all that
-        crosses to the device. int32 plans: the (C, bucket) code slice of a
-        single chunk into the int32 kernel. Either way the launch buffer is
-        a flat (rows, F) array and each part records its chunk's row offset
-        into it; on a CUDA device it is copied to pinned host memory
-        asynchronously, with an event recorded behind the copy.
+        Packed plans: a flat (coalesce * bucket,) int32 SHARD-LOCAL index
+        vector — padded to the full coalesce width so every launch of a
+        bucket has one shape — into the packed rows kernel; the indices are
+        all that crosses to the device. int32 plans: the (C, bucket) code
+        slice of a single chunk into the int32 kernel. Either way the
+        launch buffer is a flat (rows, F) array and each part records its
+        chunk's row offset into it. On a CUDA device everything — the index
+        or code copy, the kernel, the copy into pinned host memory and the
+        event behind it — runs on the executor's stream (the current
+        stream for an executor without one).
         """
         t0 = time.perf_counter()
         stall = 0.0
         if self._faults is not None:
-            stall = self._faults.before_launch(0, STREAM,
-                                               device=self.plan.device,
+            stall = self._faults.before_launch(s, stream, device=ex.device,
                                                klass=group[0].klass)
         ready_at = t0 + stall if stall else 0.0
         bucket = group[0].bucket
-        if self.packed:
-            mat = np.empty((self.coalesce, bucket), np.int32)
-            for i, ch in enumerate(group):
-                mat[i] = pad_rows_edge(ch.rows, bucket)
-            mat[len(group):] = mat[len(group) - 1]   # surplus lanes unread
-            dev = self._executor._rows_future(mat.reshape(-1))
-            nbytes = mat.nbytes
-        else:
-            codes = self.plan.host_codes(pad_rows_edge(group[0].rows, bucket))
-            dev = self._executor.gather_device(
-                to_device(codes, self.plan.device))
-            nbytes = int(codes.nbytes)
-        parts = [(ch.ticket, ch.n, ch.dest, i * bucket)
-                 for i, ch in enumerate(group)]
-        if dev.device.type != "cuda":
-            return _Flight(dev, None, parts, group, t0, ready_at), nbytes
-        host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
-        host.copy_(dev, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(dev.device))
-        return _Flight(host, event, parts, group, t0, ready_at), nbytes
+        with (torch.cuda.stream(ex.stream) if ex.stream is not None
+              else contextlib.nullcontext()):
+            if self.packed:
+                mat = np.empty((self.coalesce, bucket), np.int32)
+                for i, ch in enumerate(group):
+                    mat[i] = pad_rows_edge(ch.rows, bucket)
+                mat[len(group):] = mat[len(group) - 1]   # surplus lanes unread
+                dev = ex._rows_future(mat.reshape(-1))
+                nbytes = mat.nbytes
+            else:
+                codes = self._slice_padded(group[0].rows, bucket)
+                dev = ex.gather_device(to_device(codes, ex.device))
+                nbytes = int(codes.nbytes)
+            parts = [(ch.ticket, ch.n, ch.dest, i * bucket)
+                     for i, ch in enumerate(group)]
+            if dev.device.type != "cuda":
+                return _Flight(dev, None, parts, group, ex, t0,
+                               ready_at), nbytes
+            host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
+            host.copy_(dev, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(dev.device))
+        return _Flight(host, event, parts, group, ex, t0, ready_at), nbytes
 
     @staticmethod
     def _await_flight(fl: _Flight) -> tuple[np.ndarray, float]:
@@ -850,7 +1145,10 @@ class FeatureService:
                     buf = np.empty((self._ticket_rows[ticket],
                                     arr.shape[1]), arr.dtype)
                     self._out_buf[ticket] = buf
-                buf[dest:dest + n] = piece
+                if isinstance(dest, np.ndarray):
+                    buf[dest] = piece
+                else:
+                    buf[dest:dest + n] = piece
                 done = self._chunks_done.get(ticket, 0) + 1
                 if done < total:
                     self._chunks_done[ticket] = done
@@ -878,6 +1176,253 @@ class FeatureService:
             self._retire_prog = i + 1
         return landed
 
+    # -- adaptive shard management ---------------------------------------------------
+    def _drain_admin(self) -> None:
+        """Run queued shard-set mutations (lock held, pump thread only)."""
+        while self._admin_q:
+            fn, ev, box = self._admin_q.popleft()
+            try:
+                box.append(fn())
+            except BaseException as e:
+                box.append(e)
+            ev.set()
+
+    def _fail_admin(self, err: BaseException) -> None:
+        """Unblock admin waiters when the pump dies (lock held)."""
+        while self._admin_q:
+            _, ev, box = self._admin_q.popleft()
+            box.append(err)
+            ev.set()
+
+    def _run_admin(self, fn):
+        """Run ``fn`` under the lock ON THE PUMP THREAD and return its
+        result. The pump is the only thread that launches, so a shard-set
+        mutation marshalled onto it can never race a launch; one asked for
+        by the pump itself (the monitor) runs inline."""
+        if threading.current_thread() is self._pump:
+            return fn()
+        ev = threading.Event()
+        box: list = []
+        with self._lock:
+            self._check_pump()
+            if self._shutdown:
+                raise RuntimeError("service is shut down")
+            self._admin_q.append((fn, ev, box))
+            self._work.notify_all()
+        while not ev.wait(timeout=0.5):
+            with self._lock:
+                self._check_pump()
+        if isinstance(box[0], BaseException):
+            raise box[0]
+        return box[0]
+
+    def _require_mesh(self) -> None:
+        if self._sharded_ex is None:
+            raise RuntimeError("adaptive shard management needs a "
+                               "sharded=True service over a packed plan")
+
+    def _add_replica_locked(self, shard: int, device=None,
+                            avoid: frozenset = frozenset()):
+        """The one replica-add path (lock held, pump thread), shared by the
+        public mutator and the monitor. ``avoid`` (devices) keeps failover
+        from replicating onto a device whose stream breaker is open."""
+        ex = self._sharded_ex.add_replica(shard, device, avoid=avoid)
+        self.stats["replicas_added"] += 1
+        self._work.notify_all()         # the shard's window just widened
+        return ex.device
+
+    def _drop_replica_locked(self, shard: int):
+        ex = self._sharded_ex.drop_replica(shard)
+        self._discard_breaker_locked(ex)
+        self.stats["replicas_dropped"] += 1
+        return ex.device
+
+    def add_replica(self, shard: int, device=None):
+        """Replicate ``shard``'s resident word stream to ``device`` (default:
+        the least loaded pool device not already holding a copy) and fan
+        reads out across the copies; returns the replica's device. A
+        configured ``max_replicas`` bounds this call too."""
+        self._require_mesh()
+
+        def op():
+            if self.max_replicas is not None and \
+                    len(self._sharded_ex.replicas[shard]) >= self.max_replicas:
+                raise ValueError(f"shard {shard} already has "
+                                 f"max_replicas={self.max_replicas} replicas")
+            return self._add_replica_locked(shard, device)
+        return self._run_admin(op)
+
+    def drop_replica(self, shard: int):
+        """Retire one replica of ``shard`` (its launches in flight finish;
+        routing changes at once). Returns the dropped replica's device."""
+        self._require_mesh()
+        return self._run_admin(lambda: self._drop_replica_locked(shard))
+
+    def split_tail(self, cut: int | None = None, device=None) -> int:
+        """Split the open tail shard at parent row ``cut`` (default: its
+        word-aligned midpoint) and swap the routing table atomically:
+        queued chunks of the old tail are re-routed (split in two where
+        they straddle the cut) with their tickets, order and linger
+        deadlines intact. Returns the new shard's index."""
+        self._require_mesh()
+        return self._run_admin(lambda: self._apply_split_locked(cut, device))
+
+    def rebalance(self) -> dict:
+        """Run the load monitor's policies NOW (on the pump thread) and
+        return the actions taken: ``{'split': [(old, new, cut)],
+        'replicated': [(shard, device)], 'dropped': [(shard, device)],
+        'failover_replicated': [(shard, device)]}``. A no-op on unsharded
+        services."""
+        return self._run_admin(self._rebalance_locked)
+
+    def _unhealthy_devices(self, now: float) -> set:
+        """Devices behind an OPEN stream breaker right now (lock held):
+        placement to avoid when re-replicating for failover."""
+        thr = self._policy.breaker_fails
+        return {ex.device for s in range(self._n_shards)
+                for ex in self._shard_streams(s)
+                if self._breaker(ex).is_open(thr, now)}
+
+    def _rebalance_locked(self) -> dict:
+        """Monitor tick (lock held, pump thread): update the per-shard
+        request-rate EWMA from the ``shard_batches`` deltas, then split the
+        tail shard past its row budget, replicate the hottest shard or shed
+        a replica of a cooled one, and re-replicate shards whose streams
+        went unhealthy (failover). One action of each kind per tick keeps
+        rebalancing incremental."""
+        actions: dict = {"split": [], "replicated": [], "dropped": [],
+                         "failover_replicated": []}
+        sx = self._sharded_ex
+        if sx is None:
+            return actions
+        self.stats["rebalances"] += 1
+        self._mon_mark = self.stats["launches"]
+        sb = self.stats["shard_batches"]
+        a = self._mon_alpha
+        for s in range(len(sb)):
+            delta = sb[s] - self._mon_last[s]
+            self._mon_last[s] = sb[s]
+            self._mon_ewma[s] = a * delta + (1 - a) * self._mon_ewma[s]
+        # -- policy 1: tail re-shard under streaming growth --
+        if self.row_budget is not None and sx.tail_rows() > self.row_budget:
+            old = len(sx.shards) - 1
+            start, _ = sx.shards[old].shard_bounds
+            cut = start + max(32, self.row_budget // 32 * 32)
+            new = self._apply_split_locked(cut)
+            actions["split"].append((old, new, cut))
+        now = time.perf_counter()
+        sick = {s for s in range(self._n_shards)
+                if len(self._healthy_streams(s, now))
+                < len(self._shard_streams(s))}
+        cap = self.max_replicas
+        if cap is None:
+            cap = len(set(sx.device_pool)) - 1
+        # -- policy 2: hot-shard replication / cold-shard shedding --
+        ewma = self._mon_ewma
+        mean = sum(ewma) / max(len(ewma), 1)
+        if mean > 0 and len(ewma) > 1:
+            hot = max(range(len(ewma)), key=lambda s: ewma[s])
+            # hot = hot_factor x the mean of the OTHER shards: with the
+            # hot shard in the mean, a hot_factor >= n_shards could never
+            # be reached
+            others = (sum(ewma) - ewma[hot]) / (len(ewma) - 1)
+            if ewma[hot] > self.hot_factor * others \
+                    and len(sx.replicas[hot]) < cap:
+                actions["replicated"].append(
+                    (hot, self._add_replica_locked(hot)))
+            for s in range(len(ewma)):
+                # never shed a replica of a shard with an unhealthy stream:
+                # the copies are its availability margin
+                if s != hot and sx.replicas[s] and ewma[s] < mean \
+                        and s not in sick:
+                    actions["dropped"].append(
+                        (s, self._drop_replica_locked(s)))
+                    break
+        # -- policy 3: failover re-replication around unhealthy streams --
+        if sick:
+            bad = self._unhealthy_devices(now)
+            for s in sorted(sick):
+                if len(self._healthy_streams(s, now)) < 2 \
+                        and len(sx.replicas[s]) < cap:
+                    actions["failover_replicated"].append(
+                        (s, self._add_replica_locked(s, avoid=bad)))
+        return actions
+
+    def _apply_split_locked(self, cut: int | None = None,
+                            device=None) -> int:
+        """Tail split + atomic routing swap (lock held, pump thread): the
+        executor-level swap first (new shard and stream committed, bounds
+        flipped, old tail closed), then one new queue, in-flight window and
+        stats lane APPENDED (existing shard indices never move), the old
+        tail's queued chunks re-routed to whichever side of the cut owns
+        their rows, and the route generation bumped so a submit that raced
+        the swap builds its chunks again."""
+        self._require_mesh()
+        sx = self._sharded_ex
+        old = len(sx.shards) - 1
+        new = sx.split_tail(cut=cut, device=device)
+        self._queues.append(deque())
+        self._inflights.append(deque())
+        self._busy.append(0)
+        for k in ("shard_launches", "shard_batches", "shard_bytes_h2d"):
+            self.stats[k].append(0)
+        self._mon_ewma.append(0.0)
+        self._mon_last.append(0)
+        self._stream_rr.append(0)
+        self._stragglers.append(self._new_straggler())
+        self._n_shards += 1
+        self.stats["shard_splits"] += 1
+        self._reroute_after_split(old, new)
+        self._route_gen += 1
+        self._work.notify_all()         # the new queue may be launchable
+        return new
+
+    def _reroute_after_split(self, old: int, new: int) -> None:
+        """Move queued old-tail chunks whose rows now belong to the new
+        shard (lock held). A chunk straddling the cut splits in two: its
+        ticket's chunk count grows by one and each piece keeps its output
+        positions, so the request retires complete and in order."""
+        sx = self._sharded_ex
+        cut_local = int(sx.shards[new]._start - sx.shards[old]._start)
+        q = self._queues[old]
+        if not q:
+            return
+        keep: deque = deque()
+        moved: deque = deque()
+        for ch in q:
+            below = ch.rows < cut_local
+            if below.all():
+                keep.append(ch)
+                continue
+            if not below.any():
+                ch.rows = ch.rows - cut_local
+                ch.shard = new
+                moved.append(ch)
+                continue
+            pos = (ch.dest + np.arange(ch.n)
+                   if isinstance(ch.dest, (int, np.integer)) else ch.dest)
+            ra, rb = ch.rows[below], ch.rows[~below] - cut_local
+            ka = _Chunk(ch.ticket, ra, ra.shape[0],
+                        self._bucket(ra.shape[0]), old, pos[below],
+                        ch.t_enq, klass=ch.klass)
+            kb = _Chunk(ch.ticket, rb, rb.shape[0],
+                        self._bucket(rb.shape[0]), new, pos[~below],
+                        ch.t_enq, klass=ch.klass)
+            keep.append(ka)
+            moved.append(kb)
+            self._chunks_total[ch.ticket] += 1
+            # keep the submit-time accounting honest: the two pieces pad
+            # (and range-classify) differently than the chunk they replace
+            self.stats["padded_rows"] += (ka.bucket - ka.n) + \
+                (kb.bucket - kb.n) - (ch.bucket - ch.n)
+            self.stats["packed_ranges"] += (
+                int(self._aligned_range(ka.rows)) +
+                int(self._aligned_range(kb.rows)) -
+                int(self._aligned_range(ch.rows)))
+        q.clear()
+        q.extend(keep)
+        self._queues[new].extend(moved)
+
     # -- client API ---------------------------------------------------------------------
     def poll(self, ticket: int) -> bool:
         """True once the ticket has RESOLVED — its result is on host, or it
@@ -898,8 +1443,8 @@ class FeatureService:
         if not self._paused or self._shutdown:
             return False
         if ticket is None:
-            return bool(self._queue)
-        return any(ch.ticket == ticket for ch in self._queue)
+            return any(self._queues)
+        return any(ch.ticket == ticket for q in self._queues for ch in q)
 
     def result(self, ticket: int,
                timeout: float | None = None) -> np.ndarray:
@@ -989,11 +1534,14 @@ class FeatureService:
         return out
 
     # -- predicate pushdown queries (no pump involvement) -----------------------
-    def _pushdown_ex(self) -> FeatureExecutor:
+    def _pushdown_ex(self):
+        """The executor pushdown runs on: the sharded one (a scan per shard,
+        matches served where the data lives) or the service's one."""
         if not self.packed:
             raise RuntimeError("predicate pushdown needs a packed plan "
                                "(resident word streams)")
-        return self._executor
+        return self._sharded_ex if self._sharded_ex is not None \
+            else self._executor
 
     def filtered_rows(self, where) -> np.ndarray:
         """Matching row indices via the device predicate scan."""

@@ -64,14 +64,14 @@ def _tplan(data, packed):
                        packed=packed, device="cpu")
 
 
-def _jbreaker(svc):
+def _stream_breaker(svc):
+    """The breaker of the service's one launch stream (keyed by its
+    executor's stream token in both packages)."""
     return svc._breakers[svc._executor.stream_token]
 
 
-SIDES = (SimpleNamespace(name="repro", S=jserve, plan=_jplan,
-                         breaker=_jbreaker),
-         SimpleNamespace(name="repro_torch", S=tserve, plan=_tplan,
-                         breaker=lambda svc: svc._breaker))
+SIDES = (SimpleNamespace(name="repro", S=jserve, plan=_jplan),
+         SimpleNamespace(name="repro_torch", S=tserve, plan=_tplan))
 
 
 def _reference(requests, n=3000):
@@ -346,7 +346,7 @@ def _breaker_scenario(side, packed):
         trip = (svc.stats["unhealthy_shards"], svc.unhealthy)
         time.sleep(1.1)
         svc.result(svc.submit(np.arange(0, 32)), timeout=60)
-        b = side.breaker(svc)
+        b = _stream_breaker(svc)
         return (trip, svc.stats["unhealthy_shards"], svc.unhealthy,
                 b.opened, b.fails, svc.stats["retries"])
 

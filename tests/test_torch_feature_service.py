@@ -77,7 +77,7 @@ def test_service_matches_reference_service(packed):
         assert np.array_equal(g, np.asarray(w))
         assert np.array_equal(g, plan.host_features(r))
     for key in ("launches", "batches", "bytes_h2d", "requests", "rows",
-                "padded_rows", "completed"):
+                "padded_rows", "packed_ranges", "completed"):
         assert svc.stats[key] == jsvc.stats[key], key
     if packed:
         # index bytes only: 4 B x coalesce x bucket per launch

@@ -39,6 +39,19 @@ def test_port_never_imports_jax_or_the_reference(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def test_guard_walks_every_port_package():
+    """The import walk above covers every package of the port, the serve
+    placement rules of ``distributed/`` included."""
+    walked = {p.relative_to(ROOT / "src" / "repro_torch").parts[0]
+              for p in PORT_FILES if p.name != "chip_smoke.py"}
+    packages = {p.name for p in (ROOT / "src" / "repro_torch").iterdir()
+                if (p / "__init__.py").exists()}
+    assert packages <= walked
+    assert {"columnar", "core", "distributed", "kernels", "serve"} <= packages
+    assert ROOT / "src" / "repro_torch" / "distributed" / "sharding.py" \
+        in PORT_FILES
+
+
 def _tiny():
     return (Table.from_data({"a": [1, 2, 3, 2]}),
             FeatureSet().add("a", "onehot"))

@@ -4,8 +4,10 @@ scan (on its term sets and its layout cases), the masked counts (on the
 word-major grid too), the one-hot wide layer (on its forward's grid too)
 with its gradient (bit for bit against the CPU, and the same in
 every launch), the Table 6 path's bit-unpack, counts and single-table
-gather, and a front door serving through the gathers with a retried
-fault.
+gather, a front door serving through the gathers with a retried
+fault, and sharded serving with its shards on streams of cuda:0 (bit-exact
+against the CPU, a refresh and a replica drop while launches wait on other
+streams, a pool naming another card refused).
 
 Needs a CUDA device and ``nvcc`` (the kernels build at first use); every
 test skips without a card. Imports neither JAX nor the reference package,
@@ -14,6 +16,7 @@ so it runs where only the port's dependencies are installed:
     python -m pytest tests/test_torch_kernels_cuda.py -q -m cuda
 """
 import itertools
+import time
 
 import numpy as np
 import pytest
@@ -410,3 +413,231 @@ def test_front_door_retries_a_class_fault_on_card(cuda, packed):
     for (r, _), g, c in zip(reqs, served["cuda"], served["cpu"]):
         assert np.array_equal(g, c)
         assert np.array_equal(g, plan.host_features(r))
+
+
+# -- sharded serving: shards on streams of cuda:0 ------------------------------------
+SPIN = 200_000_000          # ~0.1 s at 2 GHz: launches queue behind it
+
+
+def _sharded_table(n=1 << 16, imcu_rows=1 << 14, seed=0):
+    """Four IMCU shards of a serving-shaped table (widths 8/8/2)."""
+    from repro_torch.columnar import Table
+    from repro_torch.core import FeatureSet
+    rng = np.random.default_rng(seed)
+    table = Table.from_data({"age": rng.integers(18, 90, n),
+                             "state": rng.integers(0, 50, n),
+                             "device": rng.integers(0, 4, n)},
+                            imcu_rows=imcu_rows)
+    fs = (FeatureSet().add("age", "zscore").add("state", "onehot")
+          .add("device", "onehot"))
+    return table, fs
+
+
+def _shard_requests(rng, n, count, shard=None, imcu_rows=1 << 14):
+    """Random row sets, word-aligned 64-row blocks and boundary straddles;
+    all inside one shard when ``shard`` is given."""
+    lo, hi = (0, n) if shard is None else (shard * imcu_rows,
+                                           (shard + 1) * imcu_rows)
+    reqs = []
+    for i in range(count):
+        if i % 3 == 0:
+            s = int(rng.integers(lo // 32, (hi - 64) // 32)) * 32
+            reqs.append(np.arange(s, s + 64))
+        else:
+            reqs.append(rng.integers(lo, hi, int(rng.integers(1, 300))))
+    if shard is None:
+        reqs.append(np.arange(imcu_rows - 40, imcu_rows + 40))
+    return reqs
+
+
+def _spin_streams(executors):
+    """Park every executor's stream on a spin kernel, so launches queued
+    next are still waiting on the card while the host goes on."""
+    for ex in executors:
+        with torch.cuda.stream(ex.stream):
+            torch.cuda._sleep(SPIN)
+
+
+def _wait_window_full(svc, launches, timeout=30.0):
+    deadline = time.perf_counter() + timeout
+    while svc.stats["launches"] < launches:
+        assert time.perf_counter() < deadline, "the pump never launched"
+        time.sleep(0.0005)
+
+
+@pytest.mark.cuda
+def test_sharded_service_four_streams_bit_exact_on_card(cuda):
+    """Four shards on four streams of cuda:0, one copy of the tables:
+    every ticket, and the sharded pushdown, equal the same service on the
+    CPU bit for bit, and the rows kernel launched on the shard streams."""
+    from repro_torch.columnar import query as Q
+    from repro_torch.core import FeaturePlan
+    from repro_torch.serve import FeatureService
+    table, fs = _sharded_table()
+    n = table.n_rows
+    reqs = _shard_requests(np.random.default_rng(1), n, 90)
+    pred = Q.isin("state", [3, 7, 11]) & Q.gt("age", 60)
+    served = {}
+    for dev in (cuda, torch.device("cpu")):
+        plan = FeaturePlan(table, fs, packed=True, device=dev)
+        launched = ops.LAUNCHES["adv_gather_packed_rows"]
+        scans = scan_ops.LAUNCHES["predicate_scan"]
+        with FeatureService(plan, sharded=True, buckets=(64, 256),
+                            coalesce=4, devices=[dev]) as svc:
+            sx = svc._sharded_ex
+            assert svc.n_shards == 4 and len(sx._caches) == 1
+            if dev.type == "cuda":
+                streams = {ex.stream.cuda_stream for ex in sx.executors}
+                assert len(streams) == 4
+                assert torch.cuda.default_stream().cuda_stream not in streams
+            svc.pause()
+            tks = [svc.submit(r) for r in reqs]
+            svc.resume()
+            got = [svc.result(t, timeout=60) for t in tks]
+            push = (svc.count_where(pred), svc.filtered_rows(pred),
+                    svc.groupby_where("device", pred)[1],
+                    svc.agg_where(pred, "age", "mean"),
+                    svc.result(svc.submit(where=pred), timeout=60))
+            st = dict(svc.stats)
+        for r, g in zip(reqs, got):
+            assert np.array_equal(g, plan.host_features(r))
+        served[dev.type] = (got, push, st)
+        if dev.type == "cuda":
+            assert ops.LAUNCHES["adv_gather_packed_rows"] >= \
+                launched + st["launches"]
+            assert scan_ops.LAUNCHES["predicate_scan"] >= scans + 4
+            assert st["retries"] == st["failed_tickets"] == 0
+    (g_cuda, p_cuda, s_cuda), (g_cpu, p_cpu, s_cpu) = \
+        served["cuda"], served["cpu"]
+    for a, b in zip(g_cuda, g_cpu):
+        assert np.array_equal(a, b)
+    for a, b in zip(p_cuda, p_cpu):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
+    for key in ("launches", "shard_launches", "split_requests",
+                "packed_ranges", "bytes_h2d"):
+        assert s_cuda[key] == s_cpu[key], key
+
+
+@pytest.mark.cuda
+def test_sharded_refresh_while_launches_in_flight_on_card(cuda):
+    """A refresh (appended rows, the ADV tables rebuilt) lands while eight
+    launches wait on their shard streams behind a spin kernel, and the
+    freed memory is handed out again at once on the default stream. The
+    in-flight launches must still read the tables they were given: every
+    served row equals its features before or after the refresh, bit for
+    bit, and none reads the overwritten memory."""
+    from repro_torch.core import FeaturePlan
+    from repro_torch.serve import FeatureService
+    table, fs = _sharded_table()
+    n = table.n_rows
+    plan = FeaturePlan(table, fs, packed=True, device=cuda)
+    rng = np.random.default_rng(2)
+    reqs = _shard_requests(rng, n, 64)
+    before = [plan.host_features(r) for r in reqs]
+    with FeatureService(plan, sharded=True, buckets=(64, 256), coalesce=2,
+                        devices=[cuda]) as svc:
+        sx = svc._sharded_ex
+        old = plan.fused_tables()
+        old_bytes = old.tables.numel()
+        svc.pause()
+        tks = [svc.submit(r) for r in reqs]
+        _spin_streams(sx.executors)
+        svc.resume()
+        _wait_window_full(svc, 2 * svc.n_shards)
+        d = {c: table[c].dictionary for c in ("age", "state", "device")}
+        plan.refresh({c: d[c].add_rows(d[c].values[rng.integers(
+            0, d[c].cardinality, 4096)]) for c in d})
+        # drop every host reference to the old tables now (the executors
+        # would drop theirs at their next launches), so they are freed
+        # while the launches given them still wait behind the spin
+        for ex in sx.executors:
+            ex._fused_seen = None
+        for tc in sx._caches.values():
+            tc.fused_src = tc.fused = None
+        del old
+        new = plan.fused_tables()
+        # hand the freed memory out again on the default stream, at once
+        junk = [torch.full((old_bytes,), float("nan"), device=cuda)
+                for _ in range(8)]
+        got = [svc.result(t, timeout=60) for t in tks]
+        del junk
+        after = [plan.host_features(r) for r in reqs]
+        assert new.tables.numel() == old_bytes
+    n_old = 0
+    for g, b, a in zip(got, before, after):
+        # a launch reads one version of the tables; a ticket whose rows
+        # span shards is several launches, so it may hold both
+        assert not np.isnan(g).any()
+        old_rows = (g == b).all(axis=1)
+        assert (old_rows | (g == a).all(axis=1)).all()
+        n_old += int((old_rows & ~(b == a).all(axis=1)).sum())
+    assert n_old >= 1                      # launches did precede the refresh
+    assert svc.stats["failed_tickets"] == 0
+
+
+@pytest.mark.cuda
+def test_sharded_drop_replica_under_load_on_card(cuda):
+    """Shard 0 with two replicas takes a burst; a replica is dropped while
+    its launches wait behind a spin kernel, and memory is handed out
+    again on the default stream at once. Every ticket stays bit-exact."""
+    from repro_torch.core import FeaturePlan
+    from repro_torch.serve import FeatureService
+    table, fs = _sharded_table()
+    plan = FeaturePlan(table, fs, packed=True, device=cuda)
+    reqs = _shard_requests(np.random.default_rng(3), table.n_rows, 96,
+                           shard=0)
+    with FeatureService(plan, sharded=True, buckets=(64, 256), coalesce=2,
+                        devices=[cuda]) as svc:
+        svc.add_replica(0)
+        svc.add_replica(0)
+        sx = svc._sharded_ex
+        assert svc.replicas[0] == 2
+        words = sx.replicas[0][-1].resident_bytes()
+        svc.pause()
+        tks = [svc.submit(r) for r in reqs]
+        _spin_streams(sx.stream_executors(0))
+        svc.resume()
+        _wait_window_full(svc, 6)          # 2 per stream, 3 streams
+        svc.drop_replica(0)
+        junk = [torch.full((words // 4,), -1, dtype=torch.int32,
+                           device=cuda) for _ in range(8)]
+        got = [svc.result(t, timeout=60) for t in tks]
+        del junk
+        assert svc.replicas[0] == 1
+        assert svc.stats["replicas_dropped"] == 1
+        assert svc.stats["failed_tickets"] == 0
+    for r, g in zip(reqs, got):
+        assert np.array_equal(g, plan.host_features(r))
+
+
+@pytest.mark.cuda
+def test_sharded_pool_naming_another_card_raises_on_card(cuda):
+    """The launchers use cuda:0 only: a serve pool naming cuda:1 raises
+    before anything is put there, on any machine."""
+    from repro_torch.core import FeaturePlan, ShardedFeatureExecutor
+    from repro_torch.serve import FeatureService
+    table, fs = _sharded_table(n=4096, imcu_rows=1024)
+    plan = FeaturePlan(table, fs, packed=True, device=cuda)
+    with pytest.raises(ValueError, match="cuda:0 only"):
+        ShardedFeatureExecutor(plan, devices=[torch.device("cuda", 1)])
+    with pytest.raises(ValueError, match="cuda:0 only"):
+        FeatureService(plan, sharded=True,
+                       devices=[cuda, torch.device("cuda", 1)])
+
+
+@pytest.mark.cuda
+def test_sharded_executor_places_tables_on_its_device_on_card(cuda):
+    """A plan on the CPU served by shards on cuda:0: each shard's words
+    and the one copy of the tables on the card are placed there, and the
+    gathers equal the plan's host reference."""
+    from repro_torch.core import FeaturePlan, ShardedFeatureExecutor
+    table, fs = _sharded_table(n=8192, imcu_rows=2048)
+    plan = FeaturePlan(table, fs, packed=True, device="cpu")
+    sx = ShardedFeatureExecutor(plan, devices=[cuda])
+    rows = np.random.default_rng(4).integers(0, table.n_rows, 700)
+    got = sx.batch(rows).cpu().numpy()
+    assert np.array_equal(got, plan.host_features(rows))
+    (cache,) = sx._caches.values()
+    assert cache.fused.tables.device.type == "cuda"
+    assert plan.fused_tables().tables.device.type == "cpu"
+    assert {ex._flat_words.device.type for ex in sx.executors} == {"cuda"}
