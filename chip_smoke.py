@@ -100,6 +100,29 @@ checkout's sources (into build/torch_ext/) and needs one card. Phases:
    ``host_features`` bit for bit; any retry or failed ticket fails the
    phase. The packed rows gather, the int32 gather, the scan and the
    masked counts must have launched.
+3d. fault tolerance and tiers — launch counts set to 0 again; a fresh
+   packed plan over phase 3c's 4-IMCU table (four 27,262,976 B streams).
+   H: shard 0 on two streams of cuda:0, the straggler EWMA warmed, one
+   launch stalled 0.6 s (``FaultPolicy(hedge_min_s=0.02,
+   hedge_factor=2.0)``, tests/test_chaos_serving.py:525): ``hedges``
+   and ``hedge_wins`` >= 1, the ticket under 0.5 s, ``completed`` up by
+   1; the ``hedge=False`` control waits the stall out; one ungated run
+   with the stream the pump picks next asleep on the card; a sampled Zipf
+   burst. L: 512 Zipf(1.2) 64-row blocks, ``kill_device(torch.device(
+   "cuda"))`` after 128: availability 1.0, no failed ticket,
+   ``devices_lost`` 1, ``host_gathers`` > 0, no word left on the card,
+   no recovery without a survivor; the device revived in the injector
+   and in DeviceHealth, the pump's rebuild arm recommits all four shards
+   and launches resume. T: ``hbm_budget_bytes`` of two streams,
+   ``cold_after=2``: tiers start hot, hot, warm, warm; serial hot and
+   tier-miss latencies; Zipf traffic at shard 3 with the monitor on until
+   a promotion displaces a colder shard, the budget held after every
+   tick; a quiet warm shard aged to cold and served from its RLE runs; a
+   demote/promote round trip that frees the stream's bytes on the card;
+   P1 pushdown on the tiered service equal to the unsharded executor's.
+   Every part holds >= 10,000 served rows against ``host_features`` bit
+   for bit; the packed rows gather, the scan and the masked counts must
+   have launched.
 4. pushdown path — launch counts set to 0 again; on the same packed plan
    and executor: count_where, filtered_rows, batch_where, groupby_where and
    agg_where of two predicates (AND and OR; range and LUT terms), and a
@@ -1314,34 +1337,54 @@ def sharded_path(S, ops, scan_ops, hist_ops, ex_p, plan_p, plan_s, plan_i,
         "equal the unsharded executor's bit for bit")
     check_clean("sharded pushdown", svc)
     svc.shutdown()
-    # B. _skewed_serve_comparison: Zipf(1.2) block ranks, hot shard 0
+    # B. _skewed_serve_comparison: Zipf(1.2) block ranks, hot shard 0; the
+    #    same mix on a service with hedging off, run in turn with it, shows
+    #    what an armed retire (event polls 0.2 ms apart) costs
     blocks = (n_rows - SHARD_RSZ) // 32
     ranks = np.minimum(rng.zipf(1.2, 800), blocks) - 1
     zreqs = [np.arange(s, s + SHARD_RSZ) for s in ranks * 32]
     hot_share = float(np.mean(ranks * 32 < n_rows // N_SHARDS))
-    skew = S.FeatureService(plan_s, sharded=True, hot_factor=2.0,
-                            max_replicas=3, **svc_kw)
-    per_stream = stream_counter(skew)
-    for _ in range(3):                  # the monitor converges on the skew
-        checked.append(check_sample("skewed warm-up", plan_s,
-                                    burst(skew, zreqs, 2)[1]))
-        skew.rebalance()
-    if skew.replicas[0] < 1:
-        fail(f"the monitor did not replicate the hot shard: "
-             f"{skew.replicas}")
-    per_stream.clear()
-    skew.reset_latency_window()
-    wall, sampled = burst(skew, zreqs, 2)
-    checked.append(check_sample("skewed run", plan_s, sampled))
-    check_clean("skewed", skew)
-    log(f"  skewed: hot share {hot_share:.4f}, replicas {skew.replicas}, "
-        f"{len(zreqs)} requests in {wall:.6f} s = "
-        f"{len(zreqs) * SHARD_RSZ / wall:.1f} rows/s, p99 "
-        f"{skew.latency_percentile(99) * 1e3:.4f} ms; launches by (shard, "
-        f"stream): {per_stream}; shard_launches "
-        f"{skew.stats['shard_launches']}, replicas_added "
-        f"{skew.stats['replicas_added']}")
-    skew.shutdown()
+    skews = {}
+    for hedge in (True, False):
+        skew = S.FeatureService(plan_s, sharded=True, hot_factor=2.0,
+                                max_replicas=3,
+                                fault_policy=S.FaultPolicy(hedge=hedge),
+                                **svc_kw)
+        per_stream = stream_counter(skew)
+        for _ in range(3):              # the monitor converges on the skew
+            checked.append(check_sample("skewed warm-up", plan_s,
+                                        burst(skew, zreqs, 2)[1]))
+            skew.rebalance()
+        if skew.replicas[0] < 1:
+            fail(f"the monitor did not replicate the hot shard: "
+                 f"{skew.replicas}")
+        per_stream.clear()
+        skew.reset_latency_window()
+        skews[hedge] = (skew, per_stream, [], dict(skew.stats))
+    for _ in range(3):
+        for hedge in (True, False):
+            wall, sampled = burst(skews[hedge][0], zreqs, 2)
+            skews[hedge][2].append(wall)
+            checked.append(check_sample("skewed run", plan_s, sampled))
+    for hedge in (True, False):
+        skew, per_stream, walls_b, st0 = skews[hedge]
+        check_clean("skewed", skew)
+        w = statistics.median(walls_b)
+        st = skew.stats
+        log(f"  skewed{'' if hedge else ', hedge=False control'}: hot "
+            f"share {hot_share:.4f}, replicas {skew.replicas}, "
+            f"{len(zreqs)} requests a run, median wall {w:.6f} s of "
+            f"{[round(x, 6) for x in walls_b]} = "
+            f"{len(zreqs) * SHARD_RSZ / w:.1f} rows/s, p99 "
+            f"{skew.latency_percentile(99) * 1e3:.4f} ms; hedges "
+            f"{st['hedges'] - st0['hedges']}, hedge_wins "
+            f"{st['hedge_wins'] - st0['hedge_wins']} in 3 runs; launches by "
+            f"(shard, stream) in 3 runs: {per_stream}; shard_launches "
+            f"{st['shard_launches']}, replicas_added {st['replicas_added']}")
+        skew.shutdown()
+    ratio_b = statistics.median(skews[False][2]) / \
+        statistics.median(skews[True][2])
+    log(f"  skewed hedged / hedge=False rows/s {ratio_b:.4f}")
     # E. one burst over the int32 plan, sharded (host routing, one pump)
     ireqs = [rng.integers(0, n_rows, SHARD_RSZ) for _ in range(512)]
     with S.FeatureService(plan_i, sharded=True, buckets=(SHARD_RSZ,)) as isvc:
@@ -1387,6 +1430,324 @@ def sharded_path(S, ops, scan_ops, hist_ops, ex_p, plan_p, plan_s, plan_i,
     idle = [k for k, v in launched.items() if v <= 0]
     if idle:
         fail(f"kernels never launched on the sharded path: {idle}")
+    return launched
+
+
+# -- phase 3d -----------------------------------------------------------------
+
+HEDGE_STALL_S = 0.6             # tests/test_chaos_serving.py:544's stall
+BUSY_CYCLES = 600_000_000       # ~0.3 s at 2 GHz: a primary stream kept busy
+
+
+def zipf_blocks(rng: np.random.Generator, n: int, lo: int, hi: int):
+    """``n`` 64-row blocks at word-aligned starts in [lo, hi), their ranks
+    Zipf(1.2) from ``lo`` (bench_featurize.py's skewed mix)."""
+    blocks = (hi - lo - SHARD_RSZ) // 32
+    ranks = np.minimum(rng.zipf(1.2, n), blocks) - 1
+    return [np.arange(s, s + SHARD_RSZ) for s in lo + ranks * 32]
+
+
+def pcts(ms: list) -> str:
+    return (f"p50 {np.percentile(ms, 50):.4f} ms, p99 "
+            f"{np.percentile(ms, 99):.4f} ms")
+
+
+def hedge_part(S, plan, rng) -> int:
+    """Part H: shard 0 on two streams of cuda:0, the straggler detector
+    warmed up, then one primary launch stalled 0.6 s: the duplicate on the
+    other stream must resolve the ticket; the hedge=False control waits
+    the stall out. Then one ungated run with the primary's stream truly
+    busy, and a sampled Zipf burst. Returns the rows checked."""
+    rows = np.arange(0, SHARD_RSZ)
+    want = plan.host_features(rows)
+    checked = 0
+    for hedge in (True, False):
+        inj = S.FaultInjector()
+        pol = S.FaultPolicy(hedge=hedge, hedge_min_s=0.02, hedge_factor=2.0,
+                            straggler_min_s=10.0, breaker_fails=100)
+        with S.FeatureService(plan, sharded=True, buckets=(SHARD_RSZ,),
+                              coalesce=1, faults=inj,
+                              fault_policy=pol) as svc:
+            svc.add_replica(0)
+            for _ in range(10):         # the EWMA past the warmup
+                if not np.array_equal(svc.result(svc.submit(rows),
+                                                 timeout=120), want):
+                    fail("hedging warm-up: features differ")
+            c0 = svc.stats["completed"]
+            inj.stall_launches(HEDGE_STALL_S, 1, shard=0)
+            t0 = time.perf_counter()
+            got = svc.result(svc.submit(rows), timeout=120)
+            dt = time.perf_counter() - t0
+            st = dict(svc.stats)
+            if not np.array_equal(got, want):
+                fail(f"hedge={hedge}: the stalled ticket's features differ")
+            name = "hedged" if hedge else "hedge=False control"
+            log(f"  H {name}: a {HEDGE_STALL_S} s stall on shard 0's next "
+                f"launch, the ticket in {dt * 1e3:.3f} ms; hedges "
+                f"{st['hedges']}, hedge_wins {st['hedge_wins']}, completed "
+                f"+{st['completed'] - c0}")
+            if not hedge:
+                if dt < HEDGE_STALL_S or st["hedges"]:
+                    fail("the hedge=False control did not wait the stall out")
+                continue
+            if st["hedges"] < 1 or st["hedge_wins"] < 1 or dt >= 0.5 or \
+                    st["completed"] != c0 + 1 or st["failed_tickets"]:
+                fail(f"the hedged ticket did not beat the stall: {dt:.3f} s, "
+                     f"{st}")
+            # ungated: the stream the pump picks next kept busy on the card
+            streams = svc._sharded_ex.stream_executors(0)
+            with svc._lock:
+                busy = streams[(svc._stream_rr[0] + 1) % len(streams)]
+            torch.cuda.synchronize()
+            b0, b1 = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            with torch.cuda.stream(busy.stream):
+                b0.record()
+                torch.cuda._sleep(BUSY_CYCLES)
+                b1.record()
+            t0 = time.perf_counter()
+            got = svc.result(svc.submit(rows), timeout=120)
+            dt = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            if not np.array_equal(got, want):
+                fail("the busy-stream ticket's features differ")
+            gained = {k: svc.stats[k] - st[k] for k in ("hedges",
+                                                        "hedge_wins")}
+            log(f"  H busy primary (ungated): the picked stream asleep "
+                f"{b0.elapsed_time(b1):.3f} ms on the card, the ticket in "
+                f"{dt * 1e3:.3f} ms; gained {gained}")
+            wall, sampled = burst(svc, zipf_blocks(rng, 160, 0, plan.n_rows),
+                                  1)
+            checked = check_sample("hedged burst", plan, sampled)
+            if svc.stats["failed_tickets"]:
+                fail("the hedged burst failed tickets")
+            log(f"  H burst: 160 Zipf blocks in {wall:.6f} s, hedges "
+                f"{svc.stats['hedges']}, {checked} rows bit-exact")
+    return checked
+
+
+def device_loss_part(S, plan, rng, dev) -> int:
+    """Part L: 512 Zipf blocks, ``kill_device(torch.device("cuda"))`` after
+    128 of them (the kill names ``cuda``, the streams ``cuda:0``). With no
+    survivor every shard is served from the host; then the device is
+    revived in the injector and in DeviceHealth and the pump's rebuild
+    arm commits all four shards again. Returns the rows checked."""
+    reqs = zipf_blocks(rng, 512, 0, plan.n_rows)
+    inj = S.FaultInjector()
+    pol = S.FaultPolicy(max_retries=8, backoff_s=0.001, breaker_fails=100)
+    checked = 0
+    with S.FeatureService(plan, sharded=True, buckets=(SHARD_RSZ,),
+                          coalesce=8, linger_us=1000.0, faults=inj,
+                          fault_policy=pol) as svc:
+        hot_wall, sampled = burst(svc, reqs[:128], 1)
+        checked += check_sample("before the loss", plan, sampled, 8192)
+        inj.kill_device(torch.device("cuda"))
+        host_wall, sampled = burst(svc, reqs[128:], 1)
+        checked += check_sample("after the loss", plan, sampled)
+        st = svc.throughput_stats(1.0)
+        words = svc.device_bytes()
+        log(f"  L: hot {128 * SHARD_RSZ / hot_wall:.1f} rows/s "
+            f"({hot_wall:.6f} s), served from the host after the loss "
+            f"{384 * SHARD_RSZ / host_wall:.1f} rows/s ({host_wall:.6f} s); "
+            f"devices_lost {st['devices_lost']}, host_gathers "
+            f"{st['host_gathers']}, recoveries {st['recoveries']}, "
+            f"availability {st['availability']}, device_bytes {words}")
+        if st["availability"] != 1.0 or st["failed_tickets"] or \
+                st["devices_lost"] != 1 or not st["host_gathers"] or \
+                words or st["recoveries"]:
+            fail(f"device loss: {st}, device_bytes {words}")
+        inj.revive_device("cuda")
+        t0 = time.perf_counter()
+        with svc._lock:
+            svc._device_health.revive(dev)
+            svc._work.notify_all()
+        while svc.stats["recoveries"] < N_SHARDS and \
+                time.perf_counter() - t0 < 60:
+            time.sleep(0.001)
+        torch.cuda.synchronize()
+        rebuild_s = time.perf_counter() - t0
+        launches0 = svc.stats["launches"]
+        wall, sampled = burst(svc, zipf_blocks(rng, 128, 0, plan.n_rows), 1)
+        checked += check_sample("after the rebuild", plan, sampled, 8192)
+        st = dict(svc.stats)
+        log(f"  L rebuild: recoveries {st['recoveries']} in {rebuild_s:.6f} "
+            f"s (four {svc._sharded_ex.executors[0].stream_nbytes()} B puts);"
+            f" then 128 blocks in {wall:.6f} s on {st['launches'] - launches0}"
+            f" launches; device_bytes {svc.device_bytes()}")
+        if st["recoveries"] != N_SHARDS or st["launches"] == launches0 or \
+                st["failed_tickets"]:
+            fail(f"the rebuild did not bring launches back: {st}")
+    return checked
+
+
+def tier_part(S, plan, want: dict, p1, rng) -> int:
+    """Part T: a budget of two shard streams, ``cold_after=2``. Serial hot
+    and tier-miss latencies; Zipf traffic at shard 3 with the monitor on
+    until a promotion displaces a colder shard (the budget held after
+    every tick); P1 pushdown on the tiered service against ``want``;
+    quiet ticks that age a warm shard to cold, served from its runs; an
+    explicit demote/promote round trip that frees the card's memory.
+    Returns the rows checked."""
+    q = plan.n_rows // N_SHARDS
+    stream_b = (q * sum(plan.device_bits)) // 8
+    budget = 2 * stream_b
+    checked = 0
+    with S.FeatureService(plan, sharded=True, hbm_budget_bytes=budget,
+                          cold_after=2, buckets=(SHARD_RSZ,), coalesce=8,
+                          linger_us=1000.0, max_replicas=0) as svc:
+        sx = svc._sharded_ex
+        if svc.tiers != ["hot", "hot", "warm", "warm"] or \
+                sx.executors[0].stream_nbytes() != stream_b:
+            fail(f"tiers at start {svc.tiers}, not two hot and two warm")
+        ticks = []
+        monitor = svc._rebalance_locked
+
+        def tick():
+            acts = monitor()
+            ticks.append(sum(sx.device_bytes().values()))
+            return acts
+        svc._rebalance_locked = tick
+        # T1: serial requests, a hot shard's and a warm one's in turns (no
+        # monitor yet: equal zero heat displaces nothing, shard 2 stays
+        # warm); a lone hot request waits out the 1 ms linger of its group
+        t0 = time.perf_counter()
+        lat = {"hot": [], "miss": []}
+        for h, m in zip(zipf_blocks(rng, 200, q, 2 * q),
+                        zipf_blocks(rng, 200, 2 * q, 3 * q)):
+            for key, r in (("hot", h), ("miss", m)):
+                t1 = time.perf_counter()
+                got = svc.result(svc.submit(r), timeout=120)
+                lat[key].append((time.perf_counter() - t1) * 1e3)
+                checked += check_sample("tier latency", plan, [(r, got)], 0)
+        log(f"  T serial ({time.perf_counter() - t0:.3f} s): hot "
+            f"{pcts(lat['hot'])}; tier miss {pcts(lat['miss'])}; tiers "
+            f"{svc.tiers}, tier_misses {svc.stats['tier_misses']}")
+        if svc.tiers[2] != "warm" or svc.stats["tier_misses"] < 200:
+            fail(f"the misses did not stay warm: {svc.tiers}")
+        # T2: the monitor on, Zipf traffic at shard 3
+        t0 = time.perf_counter()
+        svc.rebalance_every = 8
+        for _ in range(8):
+            wall, sampled = burst(svc, zipf_blocks(rng, 128, 3 * q,
+                                                   plan.n_rows), 4)
+            checked += check_sample("tier traffic", plan, sampled, 0)
+            if svc.tiers[3] == "hot":
+                break
+        st = dict(svc.stats)
+        log(f"  T promotion ({time.perf_counter() - t0:.3f} s): tiers "
+            f"{svc.tiers}, promotions {st['promotions']}, demotions "
+            f"{st['demotions']}, tier_misses {st['tier_misses']}, "
+            f"host_gathers {st['host_gathers']}; {len(ticks)} monitor "
+            f"ticks, the most resident {max(ticks)} B against a {budget} B "
+            "budget")
+        if svc.tiers[3] != "hot" or st["promotions"] < 1 or \
+                st["demotions"] < 1 or max(ticks) > budget:
+            fail(f"no promotion displaced a colder shard within the budget: "
+                 f"{svc.tiers}, {st}")
+        # T3: P1 pushdown on the tiered service
+        t0 = time.perf_counter()
+        tiers, before = svc.tiers, sum(svc.device_bytes().values())
+        got = {"count_where(P1)": svc.count_where(p1),
+               "filtered_rows(P1)": svc.filtered_rows(p1),
+               "groupby_where(device, P1)":
+               svc.groupby_where("device", p1)[1],
+               "agg_where(P1, income, mean)": svc.agg_where(p1, "income",
+                                                            "mean")}
+        after = sum(svc.device_bytes().values())
+        for k in want:
+            if not np.array_equal(np.asarray(got[k]), np.asarray(want[k])):
+                fail(f"tiered {k} differs from the unsharded executor's")
+        rows_p1 = want["filtered_rows(P1)"]
+        feats = svc.result(svc.submit(where=p1), timeout=120)
+        checked += check_sample("tiered submit(where=P1)", plan,
+                                [(rows_p1, feats)], 0)
+        svc.rebalance()
+        log(f"  T pushdown ({time.perf_counter() - t0:.3f} s): P1 over tiers "
+            f"{tiers} equals the unsharded executor's; resident {before} B "
+            f"before the scans, {after} B after them (the off-device "
+            f"shards' words put again), {sum(svc.device_bytes().values())} "
+            f"B after submit(where=P1) and the next tick; tiers "
+            f"{svc.tiers}")
+        if sum(svc.device_bytes().values()) > budget:
+            fail("the tick after pushdown did not settle the budget")
+        # T4: quiet ticks age a warm shard to cold; serve from its runs
+        t0 = time.perf_counter()
+        for _ in range(3):
+            svc.rebalance()
+        cold = [s for s, tier in enumerate(svc.tiers) if tier == "cold"]
+        if not cold or max(ticks) > budget:
+            fail(f"no quiet warm shard aged to cold: {svc.tiers}")
+        c = cold[0]
+        rle = sx.shards[c].rle_bytes()
+        packed_b = sx.executors[c].stream_nbytes()
+        r0 = svc.stats["rehydrations"]
+        wall, sampled = burst(svc, zipf_blocks(rng, 160, c * q, (c + 1) * q),
+                              1)
+        checked += check_sample("cold shard", plan, sampled, 0)
+        log(f"  T cold ({time.perf_counter() - t0:.3f} s): shard {c} held as "
+            f"{rle} B of RLE runs against {packed_b} B packed "
+            f"({rle / packed_b:.3f}x: random codes barely run); 160 blocks "
+            f"from it in {wall:.6f} s, rehydrations "
+            f"+{svc.stats['rehydrations'] - r0}, tiers {svc.tiers}")
+        if svc.stats["rehydrations"] == r0:
+            fail("the cold shard was not served from its runs")
+        # T5: an explicit demote/promote round trip
+        t0 = time.perf_counter()
+        s = svc.tiers.index("hot")
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        freed = svc.demote(s, "warm")
+        torch.cuda.synchronize()
+        m1 = torch.cuda.memory_allocated()
+        ok = svc.promote(s)
+        wall, sampled = burst(svc, zipf_blocks(rng, 160, s * q, (s + 1) * q),
+                              1)
+        checked += check_sample("round trip", plan, sampled, 0)
+        st = svc.stats
+        tier_st = {k: st[k] for k in ("promotions", "demotions",
+                                      "rehydrations", "tier_misses",
+                                      "tier_hot", "tier_warm", "tier_cold")}
+        log(f"  T round trip ({time.perf_counter() - t0:.3f} s): demote({s}) "
+            f"freed {freed} B, memory_allocated {m0} -> {m1} B; promote({s})"
+            f" {ok}, tiers {svc.tiers}; stats {tier_st}")
+        if freed != stream_b or m0 - m1 < stream_b or not ok or \
+                svc.tiers[s] != "hot" or st["failed_tickets"]:
+            fail("the demote/promote round trip did not free and restore "
+                 "the shard's words")
+    if checked < 10_000:
+        fail(f"tiers: only {checked} rows checked")
+    return checked
+
+
+def fault_tier_path(S, plan, ex_p, p1, rng, counters, dev) -> dict:
+    """Phase 3d: hedging, device loss and tiered residency on the 4-IMCU
+    table of phase 3c. Returns the launches."""
+    # the unsharded executor's answers, which part T holds the tiered
+    # service's against (taken before the counts are set to 0)
+    want = {"count_where(P1)": ex_p.count_where(p1),
+            "filtered_rows(P1)": ex_p.filtered_rows(p1),
+            "groupby_where(device, P1)": ex_p.groupby_where("device", p1)[1],
+            "agg_where(P1, income, mean)": ex_p.agg_where(p1, "income",
+                                                          "mean")}
+    for counter in counters:
+        counter.reset_launches()
+    parts = {}
+    for name, part in (("H", lambda: hedge_part(S, plan, rng)),
+                       ("L", lambda: device_loss_part(S, plan, rng, dev)),
+                       ("T", lambda: tier_part(S, plan, want, p1, rng))):
+        t0 = time.perf_counter()
+        checked = part()
+        parts[name] = (time.perf_counter() - t0, checked)
+    path = launch_counts(counters)
+    launched = {k: path[k] for k in ("adv_gather_packed_rows",
+                                     "predicate_scan", "masked_counts")}
+    log(f"  parts' walls and rows checked: "
+        f"{ {k: (round(w, 3), c) for k, (w, c) in parts.items()} }")
+    log(f"kernels launched on the fault-tolerance and tier path: {path}")
+    idle = [k for k, v in launched.items() if v <= 0]
+    if idle:
+        fail(f"kernels never launched on the fault-tolerance and tier "
+             f"path: {idle}")
     return launched
 
 
@@ -2117,9 +2478,25 @@ def main() -> None:
     sharded = sharded_path(S, ops, scan_ops, hist_ops, ex_p, plan_p, plan_s,
                            plan_i, p1, p2,
                            np.random.default_rng(args.seed + 13), counters)
-    del table_s, plan_s
+    del plan_s
     log(f"max_memory_allocated: {torch.cuda.max_memory_allocated()} B")
     log(f"phase 3c (sharded serving) wall: "
+        f"{time.perf_counter() - phase_t0:.3f} s")
+
+    # -- 3d. fault tolerance and tiers ------------------------------------------------
+    phase_t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    plan_d = FeaturePlan(table_s, serving_features(FeatureSet), packed=True,
+                         device=dev)
+    log(f"fault tolerance and tiers (phase 3c's table, {N_SHARDS} IMCUs of "
+        f"{n_rows // N_SHARDS} rows, a fresh plan over it in "
+        f"{time.perf_counter() - phase_t0:.3f} s):")
+    faulted = fault_tier_path(S, plan_d, ex_p, p1,
+                              np.random.default_rng(args.seed + 14),
+                              counters, dev)
+    del table_s, plan_d
+    log(f"max_memory_allocated: {torch.cuda.max_memory_allocated()} B")
+    log(f"phase 3d (fault tolerance and tiers) wall: "
         f"{time.perf_counter() - phase_t0:.3f} s")
 
     # -- 4. pushdown path ----------------------------------------------------------
@@ -2139,7 +2516,7 @@ def main() -> None:
     if idle:
         fail(f"kernels never launched on the pushdown path: {idle}")
     launches.update(pushed)
-    for k, v in (*front.items(), *sharded.items()):
+    for k, v in (*front.items(), *sharded.items(), *faulted.items()):
         launches[k] += v
     log(f"phase 4 (pushdown) wall: {time.perf_counter() - phase_t0:.3f} s")
 

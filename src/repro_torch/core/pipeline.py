@@ -48,7 +48,10 @@ Layering (this module):
   with its own CUDA stream, the ADV tables are held once per device, and
   arbitrary-row requests are routed to the shard that owns them. Hot
   shards gain replicas (read fan-out) and the open tail shard splits under
-  streaming growth.
+  streaming growth. Under ``hbm_budget_bytes`` only the shards that fit
+  commit their words; a shard plan can drop to RLE runs on the host
+  (:meth:`_PackedShardPlan.demote_cold`), and a lost device's streams are
+  evicted and rebuilt elsewhere (``evict_device``, ``rebuild_on``).
 - :class:`FeaturePipeline` — the facade over both.
 
 Every launch goes through a hand-written CUDA kernel on a CUDA device; the
@@ -87,12 +90,14 @@ from repro_torch.columnar.bitpack import (bits_needed, pack_bits,
                                           packed_gather, packed_nbytes,
                                           unpack_bits)
 from repro_torch.columnar.dictionary import Dictionary
+from repro_torch.columnar.rle import rle_decode, rle_encode, rle_nbytes
 from repro_torch.columnar.table import Table
 from repro_torch.core.adv import AugmentedDictionary
 from repro_torch.core.feature_spec import FeatureSet
-from repro_torch.distributed.sharding import (canonical_device,
+from repro_torch.distributed.sharding import (DeviceBudget,
+                                              canonical_device,
                                               replica_device, serve_devices,
-                                              serve_mesh)
+                                              serve_mesh, surviving_devices)
 from repro_torch.kernels.adv_gather import ops as adv_ops
 from repro_torch.kernels.bitunpack.kernel import tpu_width
 from repro_torch.kernels.predicate_scan import ops as scan_ops
@@ -194,7 +199,7 @@ class ColumnPlan:
 
 def _new_stats() -> dict:
     return {"tables_refreshed": 0, "fused_rebuilds": 0, "words_repacked": 0,
-            "words_put": 0}
+            "words_put": 0, "rle_encoded": 0, "rehydrated": 0}
 
 
 class FeaturePlan:
@@ -573,6 +578,10 @@ class _PackedShardPlan(FeaturePlan):
     ``last=True`` marks the open-ended tail shard: rows appended by the
     parent's :meth:`FeaturePlan.refresh` extend it. Refresh always goes
     through the parent, where the words, dictionaries and versions live.
+
+    The cold residency tier (:meth:`demote_cold`) keeps a closed shard as
+    RLE runs of its codes and no packed copy; :meth:`rehydrate` packs the
+    runs again.
     """
 
     def __init__(self, parent: FeaturePlan, start: int, stop: int,
@@ -594,6 +603,10 @@ class _PackedShardPlan(FeaturePlan):
         self._codes_matrix = None
         self.stats = stats                      # rolls up into the parent
         self._words_cache: dict[int, tuple[int, np.ndarray]] = {}
+        # cold tier: column -> (run values, run lengths, cumulative ends);
+        # while set, the shard holds no packed copy of its own
+        self._rle: dict[int, tuple[np.ndarray, np.ndarray,
+                                   np.ndarray]] | None = None
 
     @property
     def shard_bounds(self) -> tuple[int, int]:
@@ -625,6 +638,13 @@ class _PackedShardPlan(FeaturePlan):
         return [self._shard_words(i) for i in range(len(self.plans))]
 
     def _shard_words(self, i: int) -> np.ndarray:
+        if self._rle is not None:
+            # cold: pack column i from its runs at the CURRENT width (codes
+            # of existing rows never change, so the runs outlive a width
+            # repack); uncached, rehydrate() is the bulk path
+            values, lengths, _ = self._rle[i]
+            return pack_bits(rle_decode(values, lengths),
+                             self._parent.device_bits[i])
         parent = self._parent
         version = self.packed_versions[i]
         hit = self._words_cache.get(i)
@@ -646,6 +666,66 @@ class _PackedShardPlan(FeaturePlan):
     def refresh(self, new_codes=None) -> int:
         raise RuntimeError("shard plans are views — refresh the parent "
                            "FeaturePlan; every shard re-syncs by itself")
+
+    # -- the cold residency tier: RLE runs, no packed copy -----------------------
+    @property
+    def is_cold(self) -> bool:
+        return self._rle is not None
+
+    def demote_cold(self) -> int:
+        """Hold this CLOSED shard as RLE runs of every column's codes and
+        drop its packed slice; returns the run bytes. The runs stay right
+        because codes of existing rows never change (dictionaries only
+        grow). The open tail is refused: appends would stale the runs."""
+        if self._last:
+            raise ValueError("the open tail shard cannot go cold: streaming "
+                             "appends extend it and would stale the runs")
+        if self._rle is not None:
+            return self.rle_bytes()
+        runs = {}
+        for i in range(len(self.plans)):
+            codes = unpack_bits(self._shard_words(i),
+                                self._parent.device_bits[i], self._n_rows)
+            values, lengths = rle_encode(codes)
+            runs[i] = (values, lengths, np.cumsum(lengths))
+        self._rle = runs
+        self._words_cache.clear()               # the packed copy is dropped
+        self.stats["rle_encoded"] += 1
+        return self.rle_bytes()
+
+    def rehydrate(self) -> None:
+        """Leave the cold tier: decode every column's runs and pack them at
+        the CURRENT device width into the slice cache, so the executor's
+        next version-keyed put finds the words ready."""
+        if self._rle is None:
+            return
+        for i in range(len(self.plans)):
+            values, lengths, _ = self._rle[i]
+            words = pack_bits(rle_decode(values, lengths),
+                              self._parent.device_bits[i])
+            self._words_cache[i] = (self.packed_versions[i], words)
+        self._rle = None
+        self.stats["rehydrated"] += 1
+
+    def rle_bytes(self) -> int:
+        """Host bytes of the cold runs (0 when not cold)."""
+        if self._rle is None:
+            return 0
+        return sum(rle_nbytes(v, n, self._parent.device_bits[i])
+                   for i, (v, n, _) in self._rle.items())
+
+    def host_codes(self, rows: np.ndarray) -> np.ndarray:
+        """A cold shard gathers codes from its runs: one ``searchsorted``
+        per column against the cumulative run ends, no packed or decoded
+        stream built. Otherwise the packed-word gather."""
+        if self._rle is None:
+            return super().host_codes(rows)
+        rows = np.asarray(rows)
+        out = np.empty((len(self.plans), rows.shape[0]), np.int32)
+        for i, (values, _, ends) in self._rle.items():
+            run = np.searchsorted(ends, rows, side="right")
+            out[i] = values[np.minimum(run, values.size - 1)]
+        return out
 
     def close_at(self, cut: int) -> None:
         """Close this open tail shard at parent row ``cut``: it becomes an
@@ -1211,14 +1291,23 @@ class ShardedFeatureExecutor:
     reader holding either snapshot stays bit-exact. Mutators are not safe
     against a concurrent :meth:`batch`: FeatureService runs them on its
     pump; standalone users must quiesce first.
+
+    ``hbm_budget_bytes`` caps the word-stream bytes each device holds: the
+    shards commit in order while they fit (:class:`DeviceBudget`), and the
+    rest keep an executor with no words on the device until a launch or a
+    promotion puts them. :meth:`evict_device` takes a lost device's
+    streams out and :meth:`rebuild_on` commits an orphaned shard again on
+    a surviving device.
     """
 
-    def __init__(self, plan: FeaturePlan, prefetch: int = 2, devices=None):
+    def __init__(self, plan: FeaturePlan, prefetch: int = 2, devices=None,
+                 hbm_budget_bytes: int | None = None):
         if not plan.packed:
             raise ValueError("sharded executors serve packed plans; int32 "
                              "plans route host code slices instead")
         self.plan = plan
         self.prefetch = prefetch
+        self.hbm_budget_bytes = hbm_budget_bytes
         self.device_pool = serve_mesh(devices if devices is not None
                                       else [plan.device])
         self.shards = plan.imcu_shards()
@@ -1227,18 +1316,27 @@ class ShardedFeatureExecutor:
         # (equal devices are one key); the dict persists so replicas and
         # splits landing on a device later reuse the same placed tables
         self._caches = {dev: _DeviceTableCache() for dev in self.devices}
-        self.executors = [self._executor(sp, dev)
-                          for sp, dev in zip(self.shards, self.devices)]
+        # commit each shard's words, in shard order, while they fit the
+        # per-device budget; the rest start with none (no budget: all)
+        ledger = DeviceBudget(hbm_budget_bytes)
+        self.executors = []
+        for sp, dev in zip(self.shards, self.devices):
+            ex = self._executor(sp, dev, commit=False)
+            if ledger.fits(dev, ex.stream_nbytes()):
+                ex.ensure_range_capacity(sp.n_rows)
+                ledger.charge(dev, ex.resident_bytes())
+            self.executors.append(ex)
         self.replicas: list[list[FeatureExecutor]] = [[] for _ in self.shards]
         self._rr = [0] * len(self.shards)   # read-fan-out cursor per shard
         self._set_routing()
 
-    def _executor(self, shard_plan, device) -> FeatureExecutor:
+    def _executor(self, shard_plan, device,
+                  commit: bool = True) -> FeatureExecutor:
         return FeatureExecutor(shard_plan, prefetch=self.prefetch,
                                device=device,
                                table_cache=self._caches.setdefault(
                                    device, _DeviceTableCache()),
-                               own_stream=True)
+                               commit=commit, own_stream=True)
 
     def _set_routing(self) -> None:
         """Swap the routing table as ONE snapshot: readers take the tuple
@@ -1292,6 +1390,15 @@ class ShardedFeatureExecutor:
                     out[ex.device] = out.get(ex.device, 0) + b
         return out
 
+    def budget_ledger(self) -> DeviceBudget:
+        """A :class:`DeviceBudget` charged with the live bytes of
+        :meth:`device_bytes`: the fits/headroom view the tier policies
+        consult."""
+        ledger = DeviceBudget(self.hbm_budget_bytes)
+        for dev, n in self.device_bytes().items():
+            ledger.charge(dev, n)
+        return ledger
+
     def add_replica(self, shard: int, device=None,
                     avoid=frozenset()) -> FeatureExecutor:
         """Commit a REPLICA of ``shard``'s resident words to the least
@@ -1319,6 +1426,65 @@ class ShardedFeatureExecutor:
         if not self.replicas[shard]:
             raise ValueError(f"shard {shard} has no replicas to drop")
         ex = self.replicas[shard].pop(index)
+        self._rr[shard] = 0
+        return ex
+
+    def evict_device(self, device):
+        """Take every launch stream on a lost ``device`` out of rotation:
+        its replicas are dropped, and a shard whose PRIMARY was there
+        promotes its first surviving replica (which holds the words
+        already). Returns ``(removed, orphans)``: ``[(shard, executor)]``
+        for every stream taken out, and the shards left with NO live
+        stream, whose lost primary stays in place as a routing placeholder
+        until :meth:`rebuild_on`. Every removed executor drops its words
+        and the device's table copy goes; work already queued on their
+        streams keeps its operands (the words were allocated on the
+        executor's stream, the tables recorded on it)."""
+        device = canonical_device(device)
+        removed: list[tuple[int, FeatureExecutor]] = []
+        orphans: list[int] = []
+        for s in range(self.n_shards):
+            reps = self.replicas[s]
+            dead = [ex for ex in reps if ex.device == device]
+            if dead:
+                self.replicas[s] = [ex for ex in reps
+                                    if ex.device != device]
+                removed.extend((s, ex) for ex in dead)
+                self._rr[s] = 0
+            if self.executors[s].device == device:
+                removed.append((s, self.executors[s]))
+                if self.replicas[s]:           # failover: promote a replica
+                    self.executors[s] = self.replicas[s].pop(0)
+                    self.devices[s] = self.executors[s].device
+                    self._rr[s] = 0
+                else:
+                    orphans.append(s)
+        for _, ex in removed:
+            ex.evict_words()
+        self._caches.pop(device, None)
+        return removed, orphans
+
+    def rebuild_on(self, shard: int, device=None,
+                   lost=frozenset()) -> FeatureExecutor:
+        """Commit ``shard``'s primary stream again on a healthy device, from
+        the HOST packed words through the version-keyed put a refresh uses,
+        so it is bit for bit the lost one. The default device is the least
+        loaded of the pool minus ``lost``, away from devices that hold a
+        stream of the shard where it can. Raises ValueError when no device
+        survives: the caller keeps serving from the host."""
+        if device is None:
+            pool = surviving_devices(self.device_pool, lost)
+            if not pool:
+                raise ValueError(
+                    f"no surviving device to rebuild shard {shard} on")
+            held = {e.device for e in self.stream_executors(shard)}
+            device = replica_device(pool, self.device_load(), exclude=held,
+                                    unhealthy=lost)
+        else:
+            device = serve_mesh([device])[0]
+        ex = self._executor(self.shards[shard], device)
+        self.executors[shard] = ex
+        self.devices[shard] = device
         self._rr[shard] = 0
         return ex
 

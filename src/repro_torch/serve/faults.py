@@ -23,13 +23,14 @@ uses to keep serving through faults:
   After the cooldown the stream is half-open: the round-robin's next
   launch is the probe, success closes the breaker, failure re-opens it.
 - **Device health** (:class:`DeviceHealth`): one step up from breakers —
-  a per-DEVICE view of repeated launch failures. Every breaker TRIP is
-  attributed to the failing stream's device; ``device_fails`` consecutive
-  trips (no successful round trip in between) declare the device DOWN, as
-  does a single :class:`DeviceDown` error (the injectable 'device died
-  outright' fault). A down device's resident streams get evicted and
-  rebuilt on a healthy device from the host packed words — the service's
-  device-loss recovery path.
+  a per-DEVICE view of launch failures. A :class:`DeviceDown` error (the
+  injectable 'device died outright' fault) declares the device DOWN. The
+  class also counts breaker trips against ``device_fails``
+  (:meth:`DeviceHealth.strike`), as the reference's does, but the port's
+  service never feeds it trips: a kernel that keeps failing stays on the
+  retry path and is never answered from the host. A down device's
+  resident streams get evicted and rebuilt on a healthy device from the
+  host packed words — the service's device-loss recovery path.
 - **FaultInjector**: the deterministic, seed-driven chaos harness. Wired
   into the pump behind a no-op default (``faults=None`` costs one
   ``is None`` test per launch), it evaluates script rules against every
@@ -44,11 +45,12 @@ uses to keep serving through faults:
   an injected fault takes exactly the recovery path a real device error
   takes.
 
-The port's service uses the typed errors, the policy, one breaker per
-launch stream (primaries and replicas, so a retry fails over to another
-stream of its shard) and the injector. Hedged launches and device-loss
-recovery are not ported yet: :class:`DeviceHealth` and
-:class:`DeviceDown` are data only.
+Devices are keys here (:class:`DeviceHealth`, :meth:`FaultInjector.
+kill_device`): a ``torch.device`` or a device string is made canonical
+first (:func:`repro_torch.distributed.sharding.canonical_device`), so
+``cuda``, ``cuda:0`` and two equal ``torch.device`` objects are one device;
+any other hashable is its own key. ``id(device)`` would not do: every
+``torch.device(...)`` call builds a new object.
 """
 from __future__ import annotations
 
@@ -57,6 +59,9 @@ import time
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
+
+from repro_torch.distributed.sharding import canonical_device
 
 
 class ServeError(RuntimeError):
@@ -112,9 +117,10 @@ class FaultPolicy:
     least ``straggler_min_s`` — the absolute floor keeps scheduler jitter
     on fast hosts from striking healthy streams.
 
-    Device loss: ``device_fails`` CONSECUTIVE breaker trips attributed to
-    one device (no successful round trip on it in between) declare the
-    device down; a :class:`DeviceDown` error does so immediately. The
+    Device loss: a :class:`DeviceDown` error declares the device down.
+    ``device_fails`` (consecutive breaker trips on one device) is kept
+    and validated as the reference's, but the port's service does not
+    read it: repeated launch errors never lose a device. The
     pump supervisor restarts a crashed pump loop (ledger intact) at most
     ``pump_restarts`` times; past the budget the crash is terminal, the
     pre-supervisor behavior. Hedging: once a retire wait on a launch
@@ -193,56 +199,77 @@ class StreamBreaker:
         self.open_until = 0.0
 
 
+def device_key(device):
+    """The key a device is held under: canonical for a ``torch.device`` or
+    a device string, the object itself for any other hashable."""
+    if isinstance(device, (torch.device, str)):
+        return canonical_device(device)
+    return device
+
+
 @dataclass
 class DeviceHealth:
     """Per-device failure attribution, one step above stream breakers.
 
-    Owned by the service, keyed by ``id(device)``, mutated only under the
-    service lock. Breaker trips feed :meth:`strike`; a successful round
-    trip on the device feeds :meth:`ok` (consecutive counting — a device
-    that intersperses successes is sick streams, not dead hardware); a
-    :class:`DeviceDown` error feeds :meth:`mark_down` directly. Once a
+    Owned by the service, keyed by :func:`device_key`, mutated only under the
+    service lock. A :class:`DeviceDown` error feeds :meth:`mark_down`.
+    :meth:`strike` (one breaker trip) and :meth:`ok` (a successful round
+    trip; consecutive counting — a device that intersperses successes is
+    sick streams, not dead hardware) keep the reference's trip ladder;
+    the port's service calls neither. Once a
     device is down it STAYS down for the service's lifetime (its streams
     are rebuilt elsewhere; re-admitting flapping hardware is an operator
     decision, not an automatic one — :meth:`revive` exists for tests and
     tooling)."""
-    trips: dict = field(default_factory=dict)   # id(device) -> consecutive
-    down: set = field(default_factory=set)      # id(device) declared dead
+    trips: dict = field(default_factory=dict)   # device -> consecutive
+    down: set = field(default_factory=set)      # devices declared dead
     lost: int = 0                               # devices declared dead ever
 
-    def strike(self, dev_id: int, threshold: int) -> bool:
-        """One breaker trip attributed to ``dev_id``; True when this trip
+    def strike(self, device, threshold: int) -> bool:
+        """One breaker trip attributed to ``device``; True when this trip
         crossed ``threshold`` and newly declared the device down."""
-        if dev_id in self.down:
+        key = device_key(device)
+        if key in self.down:
             return False
-        n = self.trips.get(dev_id, 0) + 1
-        self.trips[dev_id] = n
-        return n >= threshold and self.mark_down(dev_id)
+        n = self.trips.get(key, 0) + 1
+        self.trips[key] = n
+        return n >= threshold and self.mark_down(key)
 
-    def ok(self, dev_id: int) -> None:
+    def ok(self, device) -> None:
         """A launch retired successfully on this device — not dead."""
-        self.trips.pop(dev_id, None)
+        self.trips.pop(device_key(device), None)
 
-    def mark_down(self, dev_id: int) -> bool:
+    def mark_down(self, device) -> bool:
         """Declare the device dead; True when it was alive until now."""
-        if dev_id in self.down:
+        key = device_key(device)
+        if key in self.down:
             return False
-        self.down.add(dev_id)
-        self.trips.pop(dev_id, None)
+        self.down.add(key)
+        self.trips.pop(key, None)
         self.lost += 1
         return True
 
-    def is_down(self, dev_id: int) -> bool:
-        return dev_id in self.down
+    def is_down(self, device) -> bool:
+        return bool(self.down) and device_key(device) in self.down
 
-    def revive(self, dev_id: int) -> None:
-        self.down.discard(dev_id)
-        self.trips.pop(dev_id, None)
+    def revive(self, device) -> None:
+        key = device_key(device)
+        self.down.discard(key)
+        self.trips.pop(key, None)
 
     def survivors(self, devices) -> list:
         """The pool minus down devices — where rebuilds may land (empty
-        when every device is gone: serving falls back to host gathers)."""
-        return [d for d in devices if id(d) not in self.down]
+        when every device is gone: serving falls back to host gathers).
+
+        Only ``torch.device`` and string members are looked up by their
+        key. Any other member is looked up by ``id()``, as the reference
+        does, while :meth:`strike`, :meth:`mark_down`, :meth:`is_down` and
+        :meth:`revive` key it by itself: after ``mark_down(obj)``,
+        ``survivors([obj])`` still lists ``obj``. So pass only devices
+        here; the service's pool always holds ``torch.device`` objects."""
+        return [d for d in devices
+                if (device_key(d) if isinstance(d, (torch.device, str))
+                    else id(d)) not in self.down]
 
 
 @dataclass
@@ -274,7 +301,7 @@ class FaultInjector:
         self._rng = np.random.default_rng(seed)
         self._rules: list[_Rule] = []
         self._random: dict | None = None
-        self._dead_devices: set[int] = set()
+        self._dead_devices: set = set()      # device_key()s
         self._lock = threading.Lock()
         self.launches_seen = 0
         self.faults_injected = 0
@@ -328,14 +355,14 @@ class FaultInjector:
         :meth:`revive_device`) — the 'accelerator fell off the bus' fault
         the device-loss recovery path evicts and rebuilds around."""
         with self._lock:
-            self._dead_devices.add(id(device))
+            self._dead_devices.add(device_key(device))
         return self
 
     def revive_device(self, device) -> "FaultInjector":
         """Heal a killed device (injection stops; whether the service
         trusts it again is the service's DeviceHealth policy, not ours)."""
         with self._lock:
-            self._dead_devices.discard(id(device))
+            self._dead_devices.discard(device_key(device))
         return self
 
     def random_faults(self, p_fail: float = 0.0, p_delay: float = 0.0,
@@ -376,7 +403,8 @@ class FaultInjector:
         fail = None
         with self._lock:
             self.launches_seen += 1
-            if device is not None and id(device) in self._dead_devices:
+            if device is not None and \
+                    device_key(device) in self._dead_devices:
                 self.device_faults += 1
                 raise DeviceDown(
                     f"injected device loss under shard {shard} "

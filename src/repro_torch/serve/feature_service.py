@@ -84,6 +84,44 @@ a launch it was retiring, goes back to the head of the queue — up to
 ``FaultPolicy.pump_restarts`` times; past that the crash is terminal and
 every entry point raises it.
 
+Device loss (sharded services): a launch or retire that raises
+:class:`DeviceDown` declares the stream's device dead (:class:`DeviceHealth`,
+keyed by the canonical device). Any other error, however often it
+repeats, stays on the retry, failover and :class:`ServeError` path: a
+kernel that fails to launch is never answered from the host instead (the
+reference also counts ``device_fails`` breaker trips as a loss; the port
+does not). A dead device's streams are evicted
+(:meth:`ShardedFeatureExecutor.evict_device`: replicas dropped, an
+orphaned primary replaced by a surviving replica), and a shard left with
+no live stream is served from its host words (:meth:`FeaturePlan.
+host_features`, bit for bit the kernel's answer) until the pump rebuilds
+its stream on a surviving device (``stats['recoveries']``), so
+availability holds even with every device dead.
+
+Hedged launches: a retire wait that outlives ``max(hedge_min_s,
+hedge_factor x the shard's EWMA round trip)`` (detector warmed up, the
+shard on more than one stream) dispatches ONE duplicate of the launch
+group on another healthy stream of the shard, with its own output,
+pinned host buffer and event; the first copy whose event completes
+resolves the tickets, the other is dropped unread (the pinned allocator
+holds its buffer until its copy is done), and a win by the duplicate
+strikes the primary's breaker. Stats ``hedges`` and ``hedge_wins``.
+
+Tiered residency (``hbm_budget_bytes``): every shard is **hot** (words
+on the device), **warm** (host packed words only) or **cold** (RLE runs
+of its codes, :meth:`_PackedShardPlan.demote_cold`). Construction commits
+shards in order while the per-device budget lasts; the rest start warm. A
+request for an off-device shard is a tier miss: it is served at once from
+the host (over a small thread pool, ``host_gather_workers``) and marks
+the shard for promotion, which the pump runs on a free beat, displacing
+strictly colder resident shards when the device is full. The monitor
+settles every device under the budget, ages a warm shard quiet for
+``cold_after`` ticks to cold, and promotes the hottest off-device shard.
+:attr:`tiers`, :meth:`device_bytes`, :meth:`demote` and :meth:`promote`
+expose it; every mutation runs on the pump. Pushdown over a warm shard
+puts its words again (the version-keyed sync), and the next monitor tick
+settles the budget.
+
 ``pause``/``resume`` hold launches (queueing continues) so callers can
 force maximal coalescing; ``shutdown`` (also via the context-manager
 protocol) drains the queue and joins the pump thread.
@@ -91,9 +129,11 @@ protocol) drains the queue and joins the pump thread.
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import time
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
@@ -103,7 +143,8 @@ from repro_torch.core.pipeline import (FeatureExecutor, FeaturePipeline,
                                        FeaturePlan, ShardedFeatureExecutor,
                                        pad_rows_edge, to_device)
 from repro_torch.serve.classes import LatencyHistogram, RequestClass
-from repro_torch.serve.faults import (DeadlineExceeded, FaultInjector,
+from repro_torch.serve.faults import (DeadlineExceeded, DeviceDown,
+                                      DeviceHealth, FaultInjector,
                                       FaultPolicy, ServeError, StreamBreaker)
 from repro_torch.train.fault import StragglerDetector
 
@@ -134,7 +175,10 @@ class _Flight:
     """One dispatched launch awaiting retire (pump thread only).
 
     ``ready_at`` gates the retire on an injected stall (simulated slow
-    device compute — 0.0 means none)."""
+    device compute — 0.0 means none). ``hedge`` is the flight of a
+    duplicate of the group launched on another stream: its own pinned
+    buffer and event, the same layout as ``parts``; whichever copy is
+    ready first retires the tickets."""
     host: torch.Tensor              # pinned copy of the launch buffer
     event: torch.cuda.Event | None  # recorded after the copy (None on CPU)
     parts: list                     # (ticket, n, dest, row_off) per chunk
@@ -142,6 +186,9 @@ class _Flight:
     ex: FeatureExecutor             # the stream that launched it
     t0: float                       # dispatch time (perf_counter)
     ready_at: float = 0.0           # injected-stall retire gate
+    shard: int = 0                  # the shard whose group this is
+    hedge: _Flight | None = None    # the duplicate launch, if any
+    hedge_done: bool = False        # hedge attempted (or impossible)
 
 
 class FeatureService:
@@ -154,6 +201,8 @@ class FeatureService:
                  linger_us: float = 0.0, devices=None,
                  rebalance_every: int = 0, row_budget: int | None = None,
                  hot_factor: float = 4.0, max_replicas: int | None = None,
+                 hbm_budget_bytes: int | None = None, cold_after: int = 2,
+                 host_gather_workers: int | None = None,
                  faults: FaultInjector | None = None,
                  fault_policy: FaultPolicy | None = None,
                  classes: tuple[RequestClass, ...] | None = None):
@@ -175,6 +224,17 @@ class FeatureService:
             raise ValueError("adaptive shard management (rebalance_every / "
                              "row_budget) needs sharded=True over a packed "
                              "plan")
+        if hbm_budget_bytes is not None and not (sharded and plan.packed):
+            raise ValueError("tiered residency (hbm_budget_bytes) needs "
+                             "sharded=True over a packed plan")
+        if cold_after < 1:
+            raise ValueError("cold_after must be >= 1 monitor tick")
+        if host_gather_workers is None:
+            # the fan-out only cuts a miss window with spare cores to land
+            # on; a 1-core host stays sequential
+            host_gather_workers = min(4, os.cpu_count() or 1)
+        if host_gather_workers < 1:
+            raise ValueError("host_gather_workers must be >= 1")
         if coalesce < 1:
             raise ValueError("coalesce must be >= 1")
         self.plan = plan
@@ -186,7 +246,8 @@ class FeatureService:
             # executor (and CUDA stream), queue and in-flight windows, all
             # fed by the one pump
             self._sharded_ex = ShardedFeatureExecutor(
-                plan, prefetch=prefetch, devices=devices)
+                plan, prefetch=prefetch, devices=devices,
+                hbm_budget_bytes=hbm_budget_bytes)
             self._executor = self._sharded_ex.executors[0]
             self._n_shards = self._sharded_ex.n_shards
         else:
@@ -241,6 +302,9 @@ class FeatureService:
         self._stream_rr = [0] * self._n_shards     # healthy-stream cursor
         self._stragglers = [self._new_straggler()
                             for _ in range(self._n_shards)]
+        # -- device-loss recovery state --
+        self._device_health = DeviceHealth()
+        self._needs_rebuild: set[int] = set()   # shards with no live stream
         # -- pump supervisor state (journal: what the pump held when it
         #    died, so a restart re-enqueues instead of losing tickets) --
         self._pump_restarts_used = 0
@@ -276,6 +340,19 @@ class FeatureService:
         self._mon_mark = 0              # launches at the last monitor tick
         self._route_gen = 0             # bumped on every routing-table swap
         self._admin_q: deque = deque()  # (fn, event, result_box) for the pump
+        # -- tiered residency state: construction committed the shards
+        #    that fit the budget; the rest start WARM --
+        self.cold_after = cold_after
+        self._tier = (["hot" if ex.resident_bytes() > 0 else "warm"
+                       for ex in self._sharded_ex.executors]
+                      if self._sharded_ex is not None
+                      else ["hot"] * self._n_shards)
+        self._offdevice = {s for s, t in enumerate(self._tier) if t != "hot"}
+        self._promote_pending: set[int] = set()   # tier misses awaiting a beat
+        self._warm_ticks = [0] * self._n_shards   # quiet ticks while warm
+        self._host_served = [0] * self._n_shards  # host-served chunks (EWMA)
+        self._host_workers = host_gather_workers
+        self._host_pool: ThreadPoolExecutor | None = None   # lazy fan-out
         self.stats = {"requests": 0, "rows": 0, "padded_rows": 0,
                       "batches": 0, "launches": 0, "max_inflight": 0,
                       "latency_s_total": 0.0, "completed": 0,
@@ -284,9 +361,17 @@ class FeatureService:
                       "split_requests": 0, "filtered_requests": 0,
                       "retries": 0, "failovers": 0, "timeouts": 0,
                       "failed_tickets": 0, "unhealthy_shards": 0,
-                      "stragglers": 0, "pump_restarts": 0,
+                      "stragglers": 0,
+                      "recoveries": 0, "pump_restarts": 0,
+                      "hedges": 0, "hedge_wins": 0,
+                      "devices_lost": 0, "host_gathers": 0,
                       "rebalances": 0, "replicas_added": 0,
                       "replicas_dropped": 0, "shard_splits": 0,
+                      "promotions": 0, "demotions": 0, "rehydrations": 0,
+                      "tier_misses": 0,
+                      "tier_hot": self._tier.count("hot"),
+                      "tier_warm": self._tier.count("warm"),
+                      "tier_cold": 0,
                       "shard_launches": [0] * self._n_shards,
                       "shard_batches": [0] * self._n_shards,
                       "shard_bytes_h2d": [0] * self._n_shards}
@@ -361,6 +446,8 @@ class FeatureService:
             self._shutdown = True
             self._notify_everyone()
         self._pump.join()
+        if self._host_pool is not None:
+            self._host_pool.shutdown(wait=True)   # idempotent
 
     def _notify_everyone(self) -> None:
         """Wake every waiter class (lock held) — shutdown/error paths."""
@@ -414,8 +501,9 @@ class FeatureService:
         b.reset()
 
     def _discard_breaker_locked(self, ex: FeatureExecutor) -> None:
-        """The stream leaves the shard set (a dropped replica): forget its
-        breaker, and give back its gauge mark when it left unhealthy."""
+        """The stream leaves the shard set (a dropped replica, an evicted
+        or rebuilt stream): forget its breaker, and give back its gauge
+        mark when it left unhealthy."""
         b = self._breakers.pop(ex.stream_token, None)
         if b is not None and b.fails >= self._policy.breaker_fails:
             self.stats["unhealthy_shards"] -= 1
@@ -427,7 +515,8 @@ class FeatureService:
     def _healthy_streams(self, s: int, now: float) -> list[FeatureExecutor]:
         thr = self._policy.breaker_fails
         return [ex for ex in self._shard_streams(s)
-                if not self._breaker(ex).is_open(thr, now)]
+                if not self._breaker(ex).is_open(thr, now)
+                and not self._device_health.is_down(ex.device)]
 
     @property
     def unhealthy(self) -> list[int]:
@@ -452,8 +541,10 @@ class FeatureService:
         now = time.perf_counter()
         thr = self._policy.breaker_fails
         idx = list(range(len(streams)))
+        dh = self._device_health
         healthy = [i for i in idx
-                   if not self._breaker(streams[i]).is_open(thr, now)]
+                   if not self._breaker(streams[i]).is_open(thr, now)
+                   and not dh.is_down(streams[i].device)]
         pool = ([i for i in healthy
                  if streams[i].stream_token not in avoid]
                 or healthy
@@ -519,9 +610,20 @@ class FeatureService:
         when another healthy stream of the shard can take the retry
         (replica failover), else after capped exponential backoff; the
         retry re-launches the same kernel. Chunks out of retries resolve
-        their tickets to a :class:`ServeError` chained to ``err``."""
+        their tickets to a :class:`ServeError` chained to ``err``.
+
+        Device attribution (sharded services): only a :class:`DeviceDown`
+        declares the stream's device dead; any other error stays on this
+        path however often it repeats, so a failing kernel ends in
+        retries and ServeErrors, never in host serving. A device newly
+        dead is recovered (its streams evicted, orphaned shards marked for
+        rebuild) before the group is queued again, so the retry sees the
+        stream set after the eviction."""
         now = time.perf_counter()
         self._strike_locked(ex, now)
+        if self._sharded_ex is not None and isinstance(err, DeviceDown) \
+                and self._device_health.mark_down(ex.device):
+            self._recover_device_locked(ex.device)
         retry, failed = [], []
         for ch in group:
             (retry if ch.attempts + 1 <= self._policy.max_retries
@@ -546,6 +648,91 @@ class FeatureService:
             self._queues[s].appendleft(ch)
         self.stats["retries"] += 1
         self._work.notify_all()
+
+    # -- device-loss recovery (evict -> host-serve -> rebuild) -----------------------
+    def _recover_device_locked(self, device) -> None:
+        """A device was declared dead (lock held, pump thread): evict its
+        streams, and mark the shards left with NO live stream for rebuild;
+        until then their queued work is served from host words (the
+        ``hostserve`` arm of :meth:`_pick_action`). A shard the tier ladder
+        had already demoted was host-served before and needs no rebuild:
+        its promotion rebuilds on a survivor if its load comes back."""
+        self.stats["devices_lost"] += 1
+        removed, orphans = self._sharded_ex.evict_device(device)
+        for _s, rex in removed:
+            self._discard_breaker_locked(rex)
+        self._needs_rebuild.update(s for s in orphans
+                                   if s not in self._offdevice)
+        self._work.notify_all()
+
+    def _rebuild_shard_locked(self, s: int) -> bool:
+        """Commit an orphaned shard's stream again on a surviving device
+        (lock held, pump thread): True once it is committed and the shard
+        launches again, False (still host-served) when no device
+        survives."""
+        sx = self._sharded_ex
+        old = sx.executors[s]
+        try:
+            sx.rebuild_on(s, lost=set(self._device_health.down))
+        except ValueError:
+            return False                 # nothing healthy to rebuild on
+        self._discard_breaker_locked(old)
+        self._needs_rebuild.discard(s)
+        self.stats["recoveries"] += 1
+        self._work.notify_all()
+        return True
+
+    def _host_features_group(self, s: int, group: list) -> list[np.ndarray]:
+        """A host-served group's features (pump thread, NO lock held): one
+        :meth:`FeaturePlan.host_features` per chunk — the same codes and
+        the same clamp as the kernel, so bit for bit its answer — over a
+        small lazy thread pool when the group has several chunks. Safe
+        concurrently: the word and run reads are pure, and tier changes
+        run only on the pump thread, which waits here."""
+        plan = (self._sharded_ex.shards[s]
+                if self._sharded_ex is not None else self.plan)
+        if len(group) == 1 or self._host_workers == 1:
+            return [plan.host_features(ch.rows) for ch in group]
+        if self._host_pool is None:
+            self._host_pool = ThreadPoolExecutor(
+                max_workers=self._host_workers,
+                thread_name_prefix="feature-service-hostgather")
+        return list(self._host_pool.map(
+            lambda ch: plan.host_features(ch.rows), group))
+
+    def _host_serve(self, s: int, group: list) -> None:
+        """Serve one taken group from the host end to end (pump thread,
+        lock NOT held on entry): a shard with no live stream (device loss)
+        or an off-device tier. Counts ``host_gathers`` only, and
+        ``tier_misses`` when the shard is off-device by tier — a miss also
+        marks the shard for promotion on a free beat. A chunk leaves the
+        ``_pump_taken`` journal once it is retired, so a pump restart
+        serves exactly the rest again."""
+        feats_list = self._host_features_group(s, group)
+        with self._lock:
+            self.stats["host_gathers"] += 1
+            self._host_served[s] += len(group)
+            miss = s in self._offdevice and s not in self._needs_rebuild
+            if miss:
+                self.stats["tier_misses"] += 1
+                self._warm_ticks[s] = 0
+                self._promote_pending.add(s)
+            landed = False
+            for feats in feats_list:
+                ch = group[0]
+                self._retire_prog = 0
+                if self._retire(feats, [(ch.ticket, ch.n, ch.dest, 0)]):
+                    landed = True
+                del group[0]
+            if landed:
+                self._cv.notify_all()
+            self._pump_taken = None
+            self._busy[s] -= 1
+            self._maybe_rebalance_locked()
+            if miss:
+                self._work.notify_all()   # the promote arm has work now
+            if self._all_idle():
+                self._idle.notify_all()
 
     # -- requests -------------------------------------------------------------------
     def _route(self, rows: np.ndarray, lo: int, hi: int):
@@ -595,7 +782,7 @@ class FeatureService:
         if filtered:
             if rows is not None:
                 raise ValueError("pass rows OR where, not both")
-            rows = self._pushdown_ex().filtered_rows(where)
+            rows = self._pushdown(lambda ex: ex.filtered_rows(where))
             if rows.size == 0:
                 return self._resolved_empty_ticket(klass)
         elif rows is None:
@@ -813,13 +1000,18 @@ class FeatureService:
         return self._sharded_ex.n_streams(s) if self._sharded_ex else 1
 
     def _pick_action(self):
-        """The pump's next action (lock held): ``("launch", shard)`` for
-        the first shard whose window has room and whose selected class's
-        group is ready; else ``("retire", shard)`` for the OLDEST launch in
-        flight, from a shard whose full window dams its queue first;
-        ``("wait", timeout)`` or ``("exit", None)``. A lingering partial
-        group or a queue whose every class is in retry backoff launches
-        nothing, but its deadline bounds the wait."""
+        """The pump's next action (lock held): ``("hostserve", shard)``
+        for queued work of a shard with no live stream or off the device
+        (served from host words); ``("launch", shard)`` for the first shard
+        whose window has room and whose selected class's group is ready;
+        else ``("retire", shard)`` for the OLDEST launch in flight, from a
+        shard whose full window dams its queue first; then, on a free
+        beat, ``("rebuild", shard)`` (only while a device survives, so a
+        wholly dead pool settles into host serving) and ``("promote",
+        shard)`` (the hottest pending tier miss); ``("wait", timeout)`` or
+        ``("exit", None)``. A lingering partial group or a queue whose
+        every class is in retry backoff launches nothing, but its deadline
+        bounds the wait."""
         held = self._paused and not self._shutdown
         linger_min = None
         now = time.perf_counter()
@@ -827,6 +1019,8 @@ class FeatureService:
             queue = self._queues[s]
             if not queue or held:
                 continue
+            if s in self._needs_rebuild or s in self._offdevice:
+                return "hostserve", s
             if len(self._inflights[s]) >= self.prefetch * self._streams(s):
                 continue
             klass, head, hold = self._select_class(queue, now)
@@ -859,6 +1053,14 @@ class FeatureService:
             return "retire", oldest_full
         if oldest is not None and linger_min is None:
             return "retire", oldest
+        if self._needs_rebuild and not self._shutdown and \
+                self._device_health.survivors(self._sharded_ex.device_pool):
+            return "rebuild", min(self._needs_rebuild)
+        if self._promote_pending and not held and not self._shutdown:
+            # a promotion never blocks a request: misses keep being served
+            # from the host while the put runs
+            return "promote", max(self._promote_pending,
+                                  key=lambda i: self._mon_ewma[i])
         if self._shutdown and self._all_idle() and not self._admin_q:
             return "exit", None
         return "wait", linger_min
@@ -914,14 +1116,14 @@ class FeatureService:
         CUDA stream, so the shards' gathers overlap on the device while the
         pump prepares the next group.
 
-        Shard-set mutations (the admin queue) run at the top of each tick,
-        when no launch or retire is mid-flight, so a split or a replica
-        swap never races a dispatch. Fault isolation: dispatching a launch
-        and waiting on its result are guarded per launch group — an
-        exception there goes to :meth:`_handle_launch_failure` (retry,
-        failover or backoff, else a per-ticket ServeError) and the loop
-        goes on; an exception in the loop's own logic lands in the
-        supervisor (:meth:`_pump_main`).
+        Shard-set mutations (the admin queue, rebuilds, promotions) run on
+        this thread, when no launch or retire is mid-flight, so a split, a
+        replica swap or a tier flip never races a dispatch or a host
+        gather. Fault isolation: dispatching a launch and waiting on its
+        result are guarded per launch group — an exception there goes to
+        :meth:`_handle_launch_failure` (retry, failover or backoff, else a
+        per-ticket ServeError) and the loop goes on; an exception in the
+        loop's own logic lands in the supervisor (:meth:`_pump_main`).
         """
         while True:
             with self._lock:
@@ -936,7 +1138,24 @@ class FeatureService:
                 if action == "exit":
                     return
                 s = arg
-                if action == "launch":
+                if action == "rebuild":
+                    self._rebuild_shard_locked(s)
+                    continue
+                if action == "promote":
+                    # pending clears whatever the outcome: a promotion that
+                    # cannot fit leaves the shard off the device until the
+                    # next miss marks it again (no spinning on a full card)
+                    self._try_promote_locked(s)
+                    self._promote_pending.discard(s)
+                    if self._all_idle():
+                        self._idle.notify_all()
+                    continue
+                if action in ("launch", "hostserve"):
+                    if action == "hostserve":
+                        # retry backoffs are void: the host path cannot
+                        # fail the way the launch did
+                        for ch in self._queues[s]:
+                            ch.not_before = 0.0
                     group = self._take_group(self._queues[s],
                                              time.perf_counter())
                     if not group:
@@ -946,22 +1165,28 @@ class FeatureService:
                             self._idle.notify_all()
                         continue
                     self._pump_taken = (s, group)
+                if action == "launch":
                     ex, stream = self._pick_stream(s, group[0].avoid)
                     if group[0].avoid and \
                             ex.stream_token not in group[0].avoid:
                         # a retry reached a stream it had not failed on
                         self.stats["failovers"] += 1
-                else:
+                elif action == "retire":
                     _, fl = self._inflights[s].popleft()
                     group, ex = fl.group, fl.ex
                     self._pump_retiring = (s, fl)
                     self._retire_prog = 0
                 self._busy[s] += 1
+            if action == "hostserve":
+                # gathered and retired outside the lock; journaled in
+                # _pump_taken like a launch
+                self._host_serve(s, group)
+                continue
             try:
                 if action == "launch":
                     fl, nbytes = self._launch(group, s, ex, stream)
                 else:
-                    arr, dt = self._await_flight(fl)
+                    arr, win_ex, dt, by_hedge = self._await_flight(fl)
             except Exception as e:
                 with self._lock:
                     self._handle_launch_failure(s, group, ex, e)
@@ -985,13 +1210,15 @@ class FeatureService:
                         self.stats["max_inflight"],
                         sum(len(i) for i in self._inflights))
                     self._busy[s] -= 1
-                    if self.rebalance_every and (
-                            self.stats["launches"] - self._mon_mark
-                            >= self.rebalance_every):
-                        self._rebalance_locked()
+                    self._maybe_rebalance_locked()
                 else:
-                    self._observe_latency_locked(s, ex, dt,
-                                                 time.perf_counter())
+                    now = time.perf_counter()
+                    self._observe_latency_locked(s, win_ex, dt, now)
+                    if by_hedge:
+                        # the primary lost the race to its own duplicate:
+                        # that IS a straggler strike
+                        self.stats["hedge_wins"] += 1
+                        self._strike_locked(fl.ex, now)
                     if self._retire(arr, fl.parts):
                         self._cv.notify_all()
                     self._pump_retiring = None
@@ -1088,29 +1315,95 @@ class FeatureService:
             parts = [(ch.ticket, ch.n, ch.dest, i * bucket)
                      for i, ch in enumerate(group)]
             if dev.device.type != "cuda":
-                return _Flight(dev, None, parts, group, ex, t0,
-                               ready_at), nbytes
+                return _Flight(dev, None, parts, group, ex, t0, ready_at,
+                               s), nbytes
             host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
             host.copy_(dev, non_blocking=True)
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(dev.device))
-        return _Flight(host, event, parts, group, ex, t0, ready_at), nbytes
+        return _Flight(host, event, parts, group, ex, t0, ready_at,
+                       s), nbytes
 
+    def _maybe_rebalance_locked(self) -> None:
+        """A monitor tick every ``rebalance_every`` launches and host
+        gathers (lock held, pump thread): a workload served all from the
+        host must still tick, or nothing would ever promote."""
+        if self.rebalance_every and (
+                self.stats["launches"] + self.stats["host_gathers"]
+                - self._mon_mark >= self.rebalance_every):
+            self._rebalance_locked()
+
+    # -- retire, hedged (speculative duplicate launches) ------------------------------
     @staticmethod
-    def _await_flight(fl: _Flight) -> tuple[np.ndarray, float]:
-        """The flight's features on the host once its copy has landed, and
-        the launch's round-trip seconds. With no injected stall: a
-        non-blocking ``Event.query()``, then a blocking wait on the event
-        only if the copy is still running. With one: poll until the stall
-        has passed and ``query()`` is true, 0.2 ms between checks. A fault
-        in the launch surfaces here and goes to the retry path."""
-        if fl.ready_at:
-            while time.perf_counter() < fl.ready_at or not (
-                    fl.event is None or fl.event.query()):
-                time.sleep(2e-4)
-        elif fl.event is not None and not fl.event.query():
-            fl.event.synchronize()
-        return fl.host.numpy(), time.perf_counter() - fl.t0
+    def _buf_ready(fl: _Flight, now: float) -> bool:
+        """A copy is ready once its injected stall has passed and its event
+        has completed (no event: a CPU launch, ready at once)."""
+        return now >= fl.ready_at and (fl.event is None or fl.event.query())
+
+    def _await_flight(self, fl: _Flight):
+        """Wait (outside the lock) until one copy of the flight is on the
+        host; returns ``(features, winning executor, round-trip seconds,
+        won_by_hedge)``. A fault in the launch surfaces here and goes to
+        the retry path.
+
+        With no injected stall and hedging not armed: a non-blocking
+        ``Event.query()``, then a blocking wait on the event only if the
+        copy is still running. Hedging arms when the policy allows it, the
+        shard has more than one stream and its straggler detector is past
+        warmup (an untrained EWMA would hedge the first launches); then,
+        and under a stall, the events are polled 0.2 ms apart, and once
+        the wait crosses :meth:`StragglerDetector.hedge_cutoff` ONE
+        duplicate is launched (:meth:`_try_hedge`) and the two race."""
+        s = fl.shard
+        det = self._stragglers[s]
+        p = self._policy
+        can_hedge = (p.hedge and self._sharded_ex is not None
+                     and det.n > det.warmup
+                     and self._sharded_ex.n_streams(s) > 1)
+        if not can_hedge and not fl.ready_at:
+            if fl.event is not None and not fl.event.query():
+                fl.event.synchronize()
+            return fl.host.numpy(), fl.ex, time.perf_counter() - fl.t0, \
+                False
+        cutoff = det.hedge_cutoff(p.hedge_factor, p.hedge_min_s)
+        while True:
+            now = time.perf_counter()
+            dup = fl.hedge
+            if dup is not None and self._buf_ready(dup, now):
+                return dup.host.numpy(), dup.ex, now - dup.t0, True
+            if self._buf_ready(fl, now):
+                return fl.host.numpy(), fl.ex, now - fl.t0, False
+            if can_hedge and not fl.hedge_done and now - fl.t0 >= cutoff:
+                self._try_hedge(fl)
+            time.sleep(2e-4)
+
+    def _try_hedge(self, fl: _Flight) -> None:
+        """Launch ONE duplicate of the flight's group on another healthy
+        stream of its shard (pump thread; the lock taken briefly to pick
+        the stream). At most one attempt per flight; a duplicate that fails
+        to launch strikes ITS stream's breaker and the wait goes on, so a
+        hedge never makes an outcome worse. The duplicate has its own
+        output, pinned buffer and event, and the layout of ``fl.parts``."""
+        fl.hedge_done = True
+        s = fl.shard
+        avoid = frozenset({fl.ex.stream_token}) | fl.group[0].avoid
+        with self._lock:
+            now = time.perf_counter()
+            if not any(e.stream_token not in avoid
+                       for e in self._healthy_streams(s, now)):
+                return                    # nowhere healthy to hedge to
+            ex2, st2 = self._pick_stream(s, avoid)
+            if ex2.stream_token == fl.ex.stream_token:
+                return
+        try:
+            dup, _nbytes = self._launch(fl.group, s, ex2, st2)
+        except Exception:
+            with self._lock:
+                self._strike_locked(ex2, time.perf_counter())
+            return
+        fl.hedge = dup
+        with self._lock:
+            self.stats["hedges"] += 1
 
     def _retire(self, arr: np.ndarray, parts: list) -> bool:
         """Distribute one retired launch buffer to its tickets (lock held);
@@ -1225,7 +1518,10 @@ class FeatureService:
                             avoid: frozenset = frozenset()):
         """The one replica-add path (lock held, pump thread), shared by the
         public mutator and the monitor. ``avoid`` (devices) keeps failover
-        from replicating onto a device whose stream breaker is open."""
+        from replicating onto a device whose stream breaker is open, and
+        the budget from one without headroom; a dead device is always
+        avoided."""
+        avoid = frozenset(avoid) | frozenset(self._device_health.down)
         ex = self._sharded_ex.add_replica(shard, device, avoid=avoid)
         self.stats["replicas_added"] += 1
         self._work.notify_all()         # the shard's window just widened
@@ -1271,37 +1567,46 @@ class FeatureService:
         """Run the load monitor's policies NOW (on the pump thread) and
         return the actions taken: ``{'split': [(old, new, cut)],
         'replicated': [(shard, device)], 'dropped': [(shard, device)],
-        'failover_replicated': [(shard, device)]}``. A no-op on unsharded
-        services."""
+        'failover_replicated': [(shard, device)], 'rebuilt': [(shard,
+        device)], 'demoted': [(shard, tier)], 'promoted': [shard]}``. A
+        no-op on unsharded services."""
         return self._run_admin(self._rebalance_locked)
 
     def _unhealthy_devices(self, now: float) -> set:
-        """Devices behind an OPEN stream breaker right now (lock held):
-        placement to avoid when re-replicating for failover."""
+        """Devices that are down or behind an OPEN stream breaker right now
+        (lock held): placement to avoid when re-replicating for
+        failover."""
         thr = self._policy.breaker_fails
-        return {ex.device for s in range(self._n_shards)
-                for ex in self._shard_streams(s)
-                if self._breaker(ex).is_open(thr, now)}
+        return set(self._device_health.down) | {
+            ex.device for s in range(self._n_shards)
+            for ex in self._shard_streams(s)
+            if self._breaker(ex).is_open(thr, now)}
 
     def _rebalance_locked(self) -> dict:
         """Monitor tick (lock held, pump thread): update the per-shard
-        request-rate EWMA from the ``shard_batches`` deltas, then split the
-        tail shard past its row budget, replicate the hottest shard or shed
-        a replica of a cooled one, and re-replicate shards whose streams
-        went unhealthy (failover). One action of each kind per tick keeps
-        rebalancing incremental."""
+        request-rate EWMA from the ``shard_batches`` and host-served
+        deltas, then split the tail shard past its row budget, rebuild the
+        shards device loss left with no live stream, replicate the hottest
+        resident shard or shed a replica of a cooled one, re-replicate
+        shards whose streams went unhealthy (failover), and run the tier
+        policies. One action of each kind per tick keeps rebalancing
+        incremental."""
         actions: dict = {"split": [], "replicated": [], "dropped": [],
-                         "failover_replicated": []}
+                         "failover_replicated": [], "rebuilt": [],
+                         "demoted": [], "promoted": []}
         sx = self._sharded_ex
         if sx is None:
             return actions
         self.stats["rebalances"] += 1
-        self._mon_mark = self.stats["launches"]
+        self._mon_mark = self.stats["launches"] + self.stats["host_gathers"]
         sb = self.stats["shard_batches"]
         a = self._mon_alpha
         for s in range(len(sb)):
-            delta = sb[s] - self._mon_last[s]
-            self._mon_last[s] = sb[s]
+            # host-served chunks are load too: a warm shard's misses never
+            # reach shard_batches, and promotion orders by this heat
+            total = sb[s] + self._host_served[s]
+            delta = total - self._mon_last[s]
+            self._mon_last[s] = total
             self._mon_ewma[s] = a * delta + (1 - a) * self._mon_ewma[s]
         # -- policy 1: tail re-shard under streaming growth --
         if self.row_budget is not None and sx.tail_rows() > self.row_budget:
@@ -1310,6 +1615,11 @@ class FeatureService:
             cut = start + max(32, self.row_budget // 32 * 32)
             new = self._apply_split_locked(cut)
             actions["split"].append((old, new, cut))
+        # -- policy 4: rebuild the shards with no live stream, before the
+        #    replica policies, so they see the rebuilt set --
+        for s in sorted(self._needs_rebuild):
+            if self._rebuild_shard_locked(s):
+                actions["rebuilt"].append((s, sx.devices[s]))
         now = time.perf_counter()
         sick = {s for s in range(self._n_shards)
                 if len(self._healthy_streams(s, now))
@@ -1321,15 +1631,27 @@ class FeatureService:
         ewma = self._mon_ewma
         mean = sum(ewma) / max(len(ewma), 1)
         if mean > 0 and len(ewma) > 1:
-            hot = max(range(len(ewma)), key=lambda s: ewma[s])
+            # a shard served from the host (rebuild pending, warm or cold)
+            # reads its load as a promotion signal, not a replication one
+            hot = max((s for s in range(len(ewma))
+                       if s not in self._needs_rebuild
+                       and s not in self._offdevice),
+                      key=lambda s: ewma[s], default=None)
             # hot = hot_factor x the mean of the OTHER shards: with the
             # hot shard in the mean, a hot_factor >= n_shards could never
             # be reached
-            others = (sum(ewma) - ewma[hot]) / (len(ewma) - 1)
-            if ewma[hot] > self.hot_factor * others \
-                    and len(sx.replicas[hot]) < cap:
-                actions["replicated"].append(
-                    (hot, self._add_replica_locked(hot)))
+            if hot is not None:
+                others = (sum(ewma) - ewma[hot]) / (len(ewma) - 1)
+                if ewma[hot] > self.hot_factor * others \
+                        and len(sx.replicas[hot]) < cap:
+                    # a replica is stream bytes too: place it around
+                    # devices without budget headroom, or not at all
+                    bavoid = self._budget_avoid_locked(
+                        sx.executors[hot].stream_nbytes())
+                    if any(d not in bavoid for d in sx.device_pool):
+                        actions["replicated"].append(
+                            (hot, self._add_replica_locked(
+                                hot, avoid=bavoid)))
             for s in range(len(ewma)):
                 # never shed a replica of a shard with an unhealthy stream:
                 # the copies are its availability margin
@@ -1342,10 +1664,18 @@ class FeatureService:
         if sick:
             bad = self._unhealthy_devices(now)
             for s in sorted(sick):
+                # a rebuild-pending shard is policy 4's, and an off-device
+                # one is served from the host by design: no replica
+                if s in self._needs_rebuild or s in self._offdevice:
+                    continue
                 if len(self._healthy_streams(s, now)) < 2 \
                         and len(sx.replicas[s]) < cap:
+                    avoid = bad | self._budget_avoid_locked(
+                        sx.executors[s].stream_nbytes())
                     actions["failover_replicated"].append(
-                        (s, self._add_replica_locked(s, avoid=bad)))
+                        (s, self._add_replica_locked(s, avoid=avoid)))
+        # -- policies 5-7: the tiered-residency ladder --
+        self._tier_policy_locked(actions)
         return actions
 
     def _apply_split_locked(self, cut: int | None = None,
@@ -1370,6 +1700,12 @@ class FeatureService:
         self._mon_last.append(0)
         self._stream_rr.append(0)
         self._stragglers.append(self._new_straggler())
+        # the fresh tail commits hot; if that overflows the budget the next
+        # tier-policy tick demotes the coldest resident
+        self._tier.append("hot")
+        self.stats["tier_hot"] += 1
+        self._warm_ticks.append(0)
+        self._host_served.append(0)
         self._n_shards += 1
         self.stats["shard_splits"] += 1
         self._reroute_after_split(old, new)
@@ -1422,6 +1758,225 @@ class FeatureService:
         q.clear()
         q.extend(keep)
         self._queues[new].extend(moved)
+
+    # -- tiered residency (hot / warm / cold) ----------------------------------------
+    def _set_tier_locked(self, s: int, tier: str) -> None:
+        """Flip one shard's tier label, its gauge stats and the off-device
+        set (lock held): the ONE place tier state changes."""
+        old = self._tier[s]
+        if old == tier:
+            return
+        self.stats["tier_" + old] -= 1
+        self.stats["tier_" + tier] += 1
+        self._tier[s] = tier
+        if tier == "hot":
+            self._offdevice.discard(s)
+        else:
+            self._offdevice.add(s)
+
+    def _budget_avoid_locked(self, need: int) -> frozenset:
+        """Devices WITHOUT headroom for ``need`` more stream bytes (empty
+        when uncapped): the placement-avoid set of replica adds, so read
+        fan-out keeps to the budget too."""
+        sx = self._sharded_ex
+        if sx is None or sx.hbm_budget_bytes is None:
+            return frozenset()
+        ledger = sx.budget_ledger()
+        return frozenset(d for d in sx.device_pool
+                         if not ledger.fits(d, need))
+
+    def _demote_shard_locked(self, s: int, tier: str = "warm") -> int:
+        """Move shard ``s`` down the ladder (lock held, pump thread);
+        returns the device bytes freed. ``warm`` drops every replica and
+        the primary's words (launches in flight keep theirs: the words
+        were allocated on the executor's stream); ``cold`` also turns the
+        host packed copy into RLE runs. The open tail cannot go cold.
+        Queued and later requests for the shard are served from the host
+        as soon as the tier flips."""
+        sx = self._sharded_ex
+        sp = sx.shards[s]
+        if tier == "cold" and sp._last:
+            raise ValueError("the open tail shard cannot go cold (its RLE "
+                             "runs would close a still-appending range); "
+                             "demote to 'warm' or split_tail() first")
+        if self._tier[s] == "cold" and tier == "warm":
+            # up the ladder within the host tiers: the packed copy comes
+            # back, nothing on the device changes
+            if sp.is_cold:
+                sp.rehydrate()
+                self.stats["rehydrations"] += 1
+            self._set_tier_locked(s, "warm")
+            return 0
+        if self._tier[s] == tier:
+            return 0
+        while sx.replicas[s]:
+            self._drop_replica_locked(s)
+        freed = sx.executors[s].evict_words()
+        if tier == "cold" and not sp.is_cold:
+            sp.demote_cold()
+        self._set_tier_locked(s, tier)
+        self._warm_ticks[s] = 0
+        # a demoted shard is served from the host by design: it no longer
+        # needs the rebuild a device loss may have queued
+        self._needs_rebuild.discard(s)
+        self.stats["demotions"] += 1
+        return freed
+
+    def _promote_shard_locked(self, s: int) -> bool:
+        """Commit shard ``s``'s words on the device again (lock held, pump
+        thread): a cold shard rehydrates first, and a shard whose home
+        device is down is rebuilt on a survivor. False when no device
+        survives (a cold shard has still moved up to warm)."""
+        sx = self._sharded_ex
+        if self._tier[s] == "hot":
+            return True
+        sp = sx.shards[s]
+        if sp.is_cold:
+            sp.rehydrate()
+            self.stats["rehydrations"] += 1
+            if self._tier[s] == "cold":
+                self._set_tier_locked(s, "warm")
+        ex = sx.executors[s]
+        down = set(self._device_health.down)
+        if ex.device in down:
+            try:
+                sx.rebuild_on(s, lost=down)
+            except ValueError:
+                return False        # no surviving device: stay on the host
+            self._discard_breaker_locked(ex)
+        else:
+            ex.ensure_range_capacity(sp.n_rows)
+        self._set_tier_locked(s, "hot")
+        self._warm_ticks[s] = 0
+        self._promote_pending.discard(s)
+        self.stats["promotions"] += 1
+        self._work.notify_all()     # the shard's queue launches again
+        return True
+
+    def _try_promote_locked(self, s: int) -> bool:
+        """Promotion within the budget (lock held, pump thread): demote
+        strictly COLDER resident shards (lower EWMA: equal heat never
+        thrashes) off the target device until ``s`` fits, then promote.
+        False when the stream can never fit, nothing colder is left to
+        displace, or no device survives."""
+        sx = self._sharded_ex
+        if sx is None or s in self._needs_rebuild:
+            return False
+        if self._tier[s] == "hot":
+            return True                   # a free-beat promote came first
+        budget = sx.hbm_budget_bytes
+        if budget is not None:
+            ex = sx.executors[s]
+            need = ex.stream_nbytes()
+            if need > budget:
+                return False              # a stream that can NEVER fit
+            # a dead home device: the promote rebuilds on a survivor and
+            # the enforcement after it settles any overshoot there
+            dev = None if self._device_health.is_down(ex.device) \
+                else ex.device
+            guard = 0
+            while dev is not None and not sx.budget_ledger().fits(dev, need):
+                victims = [v for v in range(self._n_shards)
+                           if v != s and self._tier[v] == "hot"
+                           and self._mon_ewma[v] < self._mon_ewma[s]
+                           and any(e.device == dev and e.resident_bytes() > 0
+                                   for e in sx.stream_executors(v))]
+                guard += 1
+                if not victims or guard > self._n_shards:
+                    return False          # nothing colder to displace
+                self._demote_shard_locked(
+                    min(victims, key=lambda v: self._mon_ewma[v]), "warm")
+        ok = self._promote_shard_locked(s)
+        if ok and budget is not None:
+            self._enforce_budget_locked()
+        return ok
+
+    def _enforce_budget_locked(self, actions: dict | None = None) -> None:
+        """Settle every device under the byte budget (lock held): first
+        drop the words a pushdown scan put for a warm or cold shard, then
+        demote the coldest hot shard holding a stream on an over-budget
+        device until none is over. Measured from the tensors actually held
+        (:meth:`ShardedFeatureExecutor.device_bytes`), so what splits,
+        rebuilds, replica adds and pushdown put settles here."""
+        sx = self._sharded_ex
+        if sx is None or sx.hbm_budget_bytes is None:
+            return
+        budget = sx.hbm_budget_bytes
+        over = {d for d, b in sx.device_bytes().items() if b > budget}
+        for v in self._offdevice:
+            if sx.executors[v].device in over:
+                sx.executors[v].evict_words()
+        for _ in range(4 * self._n_shards + 8):
+            over = [d for d, b in sx.device_bytes().items() if b > budget]
+            if not over:
+                return
+            victims = [v for v in range(self._n_shards)
+                       if self._tier[v] == "hot"
+                       and any(e.device == over[0] and e.resident_bytes() > 0
+                               for e in sx.stream_executors(v))]
+            if not victims:
+                return
+            v = min(victims, key=lambda x: self._mon_ewma[x])
+            self._demote_shard_locked(v, "warm")
+            if actions is not None:
+                actions["demoted"].append((v, "warm"))
+
+    def _tier_policy_locked(self, actions: dict) -> None:
+        """The monitor's residency policies, at the end of every tick (lock
+        held, pump thread): settle over-budget devices; age a warm, closed
+        shard quiet for ``cold_after`` ticks to cold; promote the hottest
+        off-device shard with load (tier misses also promote sooner, on a
+        free beat of the pump)."""
+        sx = self._sharded_ex
+        if sx is None:
+            return
+        self._enforce_budget_locked(actions)
+        for s in range(self._n_shards):
+            if self._tier[s] != "warm" or s in self._needs_rebuild \
+                    or sx.shards[s]._last:
+                continue
+            self._warm_ticks[s] += 1
+            if self._warm_ticks[s] >= self.cold_after:
+                self._demote_shard_locked(s, "cold")
+                actions["demoted"].append((s, "cold"))
+        cand = [s for s in self._offdevice
+                if s not in self._needs_rebuild and self._mon_ewma[s] > 0]
+        if cand:
+            s = max(cand, key=lambda i: self._mon_ewma[i])
+            if self._try_promote_locked(s):
+                actions["promoted"].append(s)
+
+    @property
+    def tiers(self) -> list[str]:
+        """Residency tier per shard: 'hot', 'warm' or 'cold'."""
+        with self._lock:
+            return list(self._tier)
+
+    def device_bytes(self) -> dict:
+        """Resident word-stream bytes per device (keyed by the device), as
+        the tensors held say: what the budget is enforced against. Empty
+        for unsharded services."""
+        with self._lock:
+            return ({} if self._sharded_ex is None
+                    else self._sharded_ex.device_bytes())
+
+    def demote(self, shard: int, tier: str = "warm") -> int:
+        """Move ``shard`` down the ladder ('warm' frees its device words,
+        'cold' also turns its host copy into RLE runs), on the pump like
+        every shard-set mutation; returns the device bytes freed. Requests
+        keep being served bit-exact from the host."""
+        if tier not in ("warm", "cold"):
+            raise ValueError(f"tier must be 'warm' or 'cold', got {tier!r}")
+        self._require_mesh()
+        return self._run_admin(lambda: self._demote_shard_locked(shard, tier))
+
+    def promote(self, shard: int) -> bool:
+        """Promote ``shard`` to the hot tier within the budget (colder
+        residents are displaced to warm when the device is full). False
+        when it cannot fit or no device survives: the shard keeps being
+        served from the host."""
+        self._require_mesh()
+        return self._run_admin(lambda: self._try_promote_locked(shard))
 
     # -- client API ---------------------------------------------------------------------
     def poll(self, ticket: int) -> bool:
@@ -1533,31 +2088,39 @@ class FeatureService:
         out.update(errs)
         return out
 
-    # -- predicate pushdown queries (no pump involvement) -----------------------
-    def _pushdown_ex(self):
-        """The executor pushdown runs on: the sharded one (a scan per shard,
-        matches served where the data lives) or the service's one."""
+    # -- predicate pushdown queries -------------------------------------------------
+    def _pushdown(self, query):
+        """Run ``query`` on the executor pushdown scans: the service's
+        one, or the sharded one (a scan per shard, matches found where the
+        data lives). On a sharded service the query runs ON THE PUMP
+        THREAD (:meth:`_run_admin`): the scan re-puts a warm shard's words
+        and rehydrates a cold one, and the pump's tier moves, evictions
+        and rebuilds swap executors and word streams, so both kinds of
+        change stay on one thread and a scan never meets a half-moved
+        shard. It needs a live pump, and serving waits while it scans."""
         if not self.packed:
             raise RuntimeError("predicate pushdown needs a packed plan "
                                "(resident word streams)")
-        return self._sharded_ex if self._sharded_ex is not None \
-            else self._executor
+        sx = self._sharded_ex
+        if sx is None:
+            return query(self._executor)
+        return self._run_admin(lambda: query(sx))
 
     def filtered_rows(self, where) -> np.ndarray:
         """Matching row indices via the device predicate scan."""
-        return self._pushdown_ex().filtered_rows(where)
+        return self._pushdown(lambda ex: ex.filtered_rows(where))
 
     def count_where(self, where) -> int:
         """SELECT COUNT(*) WHERE — one scan launch."""
-        return self._pushdown_ex().count_where(where)
+        return self._pushdown(lambda ex: ex.count_where(where))
 
     def groupby_where(self, column: str, where):
         """GROUP BY column COUNT(*) WHERE — masked device histogram."""
-        return self._pushdown_ex().groupby_where(column, where)
+        return self._pushdown(lambda ex: ex.groupby_where(column, where))
 
     def agg_where(self, where, column: str, agg: str = "count") -> float:
         """Masked count/sum/mean of ``column`` under a predicate."""
-        return self._pushdown_ex().agg_where(where, column, agg)
+        return self._pushdown(lambda ex: ex.agg_where(where, column, agg))
 
     # -- streaming convenience ----------------------------------------------------
     def serve_stream(self, row_batches):

@@ -641,3 +641,138 @@ def test_sharded_executor_places_tables_on_its_device_on_card(cuda):
     assert cache.fused.tables.device.type == "cuda"
     assert plan.fused_tables().tables.device.type == "cpu"
     assert {ex._flat_words.device.type for ex in sx.executors} == {"cuda"}
+
+
+# -- device loss, hedging and tiers on the card ----------------------------------------
+@pytest.mark.cuda
+def test_evict_device_under_queued_launches_on_card(cuda):
+    """Every shard's gather waits on its stream behind a spin kernel when
+    the device is evicted (its words dropped, its table cache gone); memory
+    is then allocated on another stream and overwritten at once. The
+    caching allocator keeps the evicted words for their own stream, so
+    every queued gather still reads them: bit for bit the host's."""
+    from repro_torch.core import FeaturePlan, ShardedFeatureExecutor
+    table, fs = _sharded_table()
+    plan = FeaturePlan(table, fs, packed=True, device=cuda)
+    sx = ShardedFeatureExecutor(plan, devices=[cuda])
+    rng = np.random.default_rng(5)
+    words = max(ex.resident_bytes() for ex in sx.executors)
+    _spin_streams(sx.executors)
+    outs = []
+    for ex in sx.executors:
+        rows = rng.integers(0, ex.plan.n_rows, 512).astype(np.int32)
+        with torch.cuda.stream(ex.stream):
+            outs.append((ex.plan, rows, ex._rows_future(rows)))
+    removed, orphans = sx.evict_device(torch.device("cuda"))
+    assert len(removed) == len(orphans) == 4 and not sx._caches
+    assert sx.device_bytes() == {}
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        junk = [torch.full((words // 4,), -1, dtype=torch.int32,
+                           device=cuda) for _ in range(16)]
+    torch.cuda.synchronize()
+    del junk
+    for shard_plan, rows, out in outs:
+        assert np.array_equal(out.cpu().numpy(),
+                              shard_plan.host_features(rows))
+    # and a rebuild on the revived card serves again
+    for s in orphans:
+        sx.rebuild_on(s)
+    rows = rng.integers(0, table.n_rows, 700)
+    assert np.array_equal(sx.batch(rows).cpu().numpy(),
+                          plan.host_features(rows))
+
+
+@pytest.mark.cuda
+def test_hedged_loser_pinned_buffer_not_reused_on_card(cuda):
+    """The stream the pump picks next is parked on a long spin kernel, so
+    the hedged duplicate on the shard's other stream wins and the primary
+    is dropped unread while its copy into pinned memory still waits. Pinned
+    buffers of the same size handed out right after must not be the
+    loser's: a sentinel written into them survives the loser's late
+    copy."""
+    from repro_torch.core import FeaturePlan
+    from repro_torch.serve import FaultPolicy, FeatureService
+    table, fs = _sharded_table()
+    plan = FeaturePlan(table, fs, packed=True, device=cuda)
+    rows = np.arange(0, 64)
+    want = plan.host_features(rows)
+    pol = FaultPolicy(hedge=True, hedge_min_s=0.02, hedge_factor=2.0,
+                      straggler_min_s=10.0, breaker_fails=100)
+    with FeatureService(plan, sharded=True, buckets=(64,), coalesce=1,
+                        devices=[cuda], fault_policy=pol) as svc:
+        svc.add_replica(0)
+        for _ in range(10):
+            assert np.array_equal(svc.result(svc.submit(rows), timeout=60),
+                                  want)
+        streams = svc._sharded_ex.stream_executors(0)
+        with svc._lock:
+            busy = streams[(svc._stream_rr[0] + 1) % len(streams)]
+        torch.cuda.synchronize()
+        with torch.cuda.stream(busy.stream):
+            torch.cuda._sleep(5 * SPIN)
+        got = svc.result(svc.submit(rows), timeout=60)
+        # a launch on shard 1 rebinds the pump's flight: the loser is freed
+        other = np.arange(20000, 20064)
+        assert np.array_equal(svc.result(svc.submit(other), timeout=60),
+                              plan.host_features(other))
+        pinned = [torch.full((64, plan.out_dim), 7.0).pin_memory()
+                  for _ in range(32)]
+        assert not busy.stream.query()           # the loser still waits
+        torch.cuda.synchronize()
+        assert svc.stats["hedges"] == svc.stats["hedge_wins"] == 1
+        assert svc.stats["failed_tickets"] == 0
+    assert np.array_equal(got, want)
+    for p in pinned:
+        assert bool((p == 7.0).all())
+
+
+@pytest.mark.cuda
+def test_demote_promote_roundtrip_on_card(cuda):
+    """A tiered service on cuda:0 (a budget of two streams): the shards
+    past it start warm and are served from the host; a demotion frees the
+    card's memory by the stream's bytes, cold shards serve from their
+    runs, a promotion puts the words back, and every answer equals the
+    same service's on the CPU bit for bit."""
+    from repro_torch.core import FeaturePlan
+    from repro_torch.serve import FeatureService
+    table, fs = _sharded_table()
+    reqs = _shard_requests(np.random.default_rng(6), table.n_rows, 60)
+    served = {}
+    for dev in (cuda, torch.device("cpu")):
+        plan = FeaturePlan(table, fs, packed=True, device=dev)
+        with FeatureService(plan, sharded=True, devices=[dev],
+                            buckets=(64, 256), max_replicas=0,
+                            hbm_budget_bytes=1) as probe:
+            stream_b = probe._sharded_ex.executors[0].stream_nbytes()
+        with FeatureService(plan, sharded=True, devices=[dev],
+                            buckets=(64, 256), max_replicas=0,
+                            hbm_budget_bytes=2 * stream_b) as svc:
+            got = [svc.tiers]
+            got += [svc.result(svc.submit(r), timeout=60) for r in reqs]
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                m0 = torch.cuda.memory_allocated()
+            freed = svc.demote(0, "warm")
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                assert m0 - torch.cuda.memory_allocated() >= stream_b
+            svc.demote(0, "cold")
+            svc.demote(1, "cold")
+            got += [svc.tiers, freed]
+            got += [svc.result(svc.submit(r), timeout=60) for r in reqs]
+            got += [svc.promote(0), svc.promote(2)]
+            got += [svc.result(svc.submit(r), timeout=60) for r in reqs]
+            got += [svc.tiers, {k: svc.stats[k] for k in (
+                "promotions", "demotions", "rehydrations", "tier_hot",
+                "tier_warm", "tier_cold", "failed_tickets")}]
+        for r, g in zip(reqs * 3, [g for g in got
+                                   if isinstance(g, np.ndarray)]):
+            assert np.array_equal(g, plan.host_features(r))
+        served[dev.type] = got
+    for a, b in zip(served["cuda"], served["cpu"]):
+        if isinstance(a, np.ndarray):
+            assert np.array_equal(a, b)
+        else:
+            assert a == b
+    assert served["cuda"][0] == ["hot", "hot", "warm", "warm"]

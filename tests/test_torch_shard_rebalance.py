@@ -2,16 +2,16 @@
 ``tests/test_shard_rebalance.py`` run on both packages.
 
 Seeded random interleavings of streaming appends (``FeaturePlan.refresh``),
-tail splits at aligned and unaligned cuts, replica adds and drops, and
-aligned-range and arbitrary-row serving — through the bare
+tail splits at aligned and unaligned cuts, replica adds and drops, tier
+moves (demote to warm or cold, promote), and aligned-range and
+arbitrary-row serving — through the bare
 :class:`ShardedFeatureExecutor` and through a sharded ``FeatureService``
 (mutations also staged behind ``pause()`` with chunks queued). Each
 interleaving runs once on ``repro`` and once on ``repro_torch``
 (``devices=[torch.device("cpu")]``) from the same seed; every served batch
 must equal the int32 host reference bit for bit, and the two packages must
 serve the same features and end with the same shard bounds, replicas and
-per-shard stream counters. The reference harness's tier moves (demote,
-promote) are left out: tiered residency is not ported yet.
+per-shard stream counters.
 
 Sweep depth follows ``REBALANCE_SWEEP_SEEDS`` (2 seeds per mode unless
 set), as in the reference.
@@ -34,7 +34,7 @@ from repro_torch.distributed.sharding import replica_device
 BITS_SWEEP = (1, 2, 3, 4, 6, 8, 12, 16)
 N_SEEDS = int(os.environ.get("REBALANCE_SWEEP_SEEDS", "2"))
 OPS = ("serve", "serve", "serve", "append", "split", "replica_add",
-       "replica_drop")
+       "replica_drop", "demote", "promote")
 
 SIDES = (SimpleNamespace(name="repro", C=jcore, S=jserve, Table=JTable,
                          plan=lambda t, fs, packed=False: jcore.FeaturePlan(
@@ -184,6 +184,26 @@ def _run_interleaving(side, seed, table, fs, via_service, n_ops=16):
             cands = [s for s in range(sx.n_shards) if sx.replicas[s]]
             if cands:
                 target.drop_replica(int(rng.choice(cands)))
+        elif kind == "demote":
+            s = int(rng.integers(0, sx.n_shards))
+            # the open tail refuses cold (appends would stale the runs)
+            tier = ("cold" if rng.random() < 0.5
+                    and not sx.shards[s]._last else "warm")
+            if via_service:
+                svc.demote(s, tier)
+            else:
+                # the bare executor's ladder: evict the primary's words
+                # (replicas keep serving, reads fan out regardless)
+                sx.executors[s].evict_words()
+                if tier == "cold":
+                    sx.shards[s].demote_cold()
+        elif kind == "promote":
+            s = int(rng.integers(0, sx.n_shards))
+            if via_service:
+                svc.promote(s)
+            else:
+                sx.shards[s].rehydrate()
+                sx.executors[s].ensure_range_capacity(sx.shards[s].n_rows)
 
     try:
         for _ in range(n_ops):

@@ -726,14 +726,14 @@ def test_adaptive_args_validation():
             return svc.rebalance(), svc.n_shards, svc.replicas, \
                 svc.shard_starts
     ref, port = _both(run)
-    assert port[0] == {"split": [], "replicated": [], "dropped": [],
-                       "failover_replicated": []}
-    assert {k: ref[0][k] for k in port[0]} == port[0]
+    assert port[0] == ref[0] == {
+        "split": [], "replicated": [], "dropped": [],
+        "failover_replicated": [], "rebuilt": [], "demoted": [],
+        "promoted": []}
     assert ref[1:] == port[1:] == (1, [0], [0])
     t, fs = _mixed(SIDES[1], n=1400, imcu_rows=700)
     plan = SIDES[1].plan(t, fs, True)
-    for out_of_scope in ("hbm_budget_bytes", "cold_after",
-                         "host_gather_workers", "use_kernel"):
+    for out_of_scope in ("use_kernel",):
         with pytest.raises(TypeError):
             tserve.FeatureService(plan, sharded=True, **{out_of_scope: 1})
 
