@@ -162,7 +162,28 @@ checkout's sources (into build/torch_ext/) and needs one card. Phases:
    gathered over a 65,536-row batch (the bench's full-mode N). Every
    gathered row must equal ``AugmentedDictionary.featurize`` bit for bit,
    and the three kernels must have launched.
-8. report — one JSON line per the kernel table, the nvidia-smi line, and
+8. LM serving — launch counts set to 0 again (no hand-written kernel
+   runs here: the LM's products are cuBLAS calls, as the reference's are
+   XLA's; the counts must stay 0), TF32 off. A: the five dense and vlm
+   archs (glm4-9b, qwen2-7b, minicpm-2b, starcoder2-15b,
+   llava-next-mistral-7b) at ``reduced()`` in float32, parameters from the
+   port's seeded init on the CPU copied to the card: ``ServeEngine`` on
+   the card against the same engine on the CPU, 3 requests of 6 tokens, 8
+   new, greedy tokens equal; prefill and decode logits over those tokens
+   within rtol 1e-4 / atol 1e-5; also glm4-9b with the int8 cache and at
+   max_len 2,048 (the flash prefill). B: glm4-9b at full width and depth
+   in bf16 (9,399,767,040 parameters, 18,799,534,080 B, drawn on the card
+   from ``--seed``): 8 requests of 128-token prompts, 32 new tokens,
+   max_len 160 (direct attention), then 4 requests of 1,024-token prompts,
+   16 new tokens, max_len 2,048 (the flash prefill). Each batch is served
+   by the engine, then replayed through prefill and decode (timed: prefill
+   tokens/s, decode ms/step, each beside its bound) and held against
+   ``lm.forward`` over the same tokens: every logit finite, max |serve -
+   forward| within ``LM_LOGIT_TOL``, the greedy tokens equal the
+   forward's argmax wherever its top-2 margin exceeds that tolerance;
+   ``max_memory_allocated`` at least the weights' bytes; one decode
+   step's launches from ``torch.profiler``.
+9. report — one JSON line per the kernel table, the nvidia-smi line, and
    last ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits nonzero before the last line. Without CUDA, or
@@ -171,6 +192,7 @@ without the package beside this script, it exits nonzero at once.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import io
 import itertools
 import json
@@ -2244,6 +2266,193 @@ def table6_advs(AugmentedDictionary, d):
     return aug
 
 
+# -- phase 8 ------------------------------------------------------------------
+LM_ARCHS = ("glm4-9b", "qwen2-7b", "minicpm-2b", "starcoder2-15b",
+            "llava-next-mistral-7b")
+BF16_OPS_PER_S = 989e12            # H100 SXM bf16 dense, tensor cores
+# Largest |logit| difference allowed between glm4-9b's bf16 serve path and
+# its bf16 forward over the same tokens: logits have std ~1, bf16 rounds
+# them to 2**-5 near |4|, and 40 residual layers in bf16 add their own
+# rounding (PERF.md §6, PR 23, written before the first run).
+LM_LOGIT_TOL = 0.25
+
+
+def lm_bytes(tree) -> int:
+    from torch.utils import _pytree as pytree
+    return sum(t.numel() * t.element_size() for t in pytree.tree_leaves(tree))
+
+
+def lm_matmul_params(cfg) -> int:
+    """Weights a token multiplies: every block matrix and the head (the
+    embedding is gathered)."""
+    hd, d = cfg.head_dim, cfg.d_model
+    attn = d * cfg.n_heads * hd * 2 + d * cfg.n_kv * hd * 2
+    mlp = (3 if cfg.mlp_style == "swiglu" else 2) * d * cfg.d_ff
+    return cfg.n_layers * (attn + mlp) + d * cfg.padded_vocab
+
+
+def lm_prefill_flops(cfg, b: int, plen: int) -> int:
+    """A prefill's operations: 2 per weight per token, and QK^T and PV over
+    the causal pairs (query i sees i + 1 keys)."""
+    pairs = b * plen * (plen + 1) // 2
+    return 2 * lm_matmul_params(cfg) * b * plen + \
+        cfg.n_layers * 4 * cfg.n_heads * cfg.head_dim * pairs
+
+
+def count_launches(fn) -> str:
+    """Launch calls, device activities (kernels, copies, fills) and their
+    summed device time in one call of ``fn``, from torch.profiler's trace
+    (the call's wall is the profiled one, so only the counts and device
+    time are read); "not measured" when the trace shows no device
+    activity."""
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+    except RuntimeError as e:
+        return f"not measured ({e})"
+    on_card = [e for e in events
+               if getattr(e, "device_type", None) is not None and
+               e.device_type.name == "CUDA"]
+    calls = sum(1 for e in events if "LaunchKernel" in e.name)
+    if not on_card:
+        return "not measured (the trace shows no device activity)"
+    busy = sum(e.time_range.elapsed_us() for e in on_card)
+    return (f"{calls} launch calls, {len(on_card)} device activities, "
+            f"{busy:.1f} us of device time")
+
+
+def lm_full_width(lm, get_config, Request, ServeEngine, dev, seed: int,
+                  smi: str) -> None:
+    """glm4-9b at full width and depth in bf16, weights drawn on the card
+    from ``seed``: two served batches, each held by teacher forcing against
+    ``lm.forward`` over the same tokens."""
+    from repro_torch.serve import lm_parity
+    cfg = get_config("glm4-9b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    weights = lm_bytes(params)
+    log(f"glm4-9b: {lm.param_count(params)} parameters, {weights} B of "
+        f"bf16 weights drawn on the card in {time.perf_counter() - t0:.3f} s")
+    rng = np.random.default_rng(seed + 1)
+    # warm-up at each run's shapes (cuBLAS picks and loads its bf16
+    # kernels at first use): two tokens, not timed
+    runs = ((8, 128, 32, 160), (4, 1024, 16, 2048))
+    for b, plen, _, max_len in runs:
+        ServeEngine(cfg, params, batch_size=b, max_len=max_len).run_batch(
+            [Request(prompt=np.zeros(plen, np.int32), max_new_tokens=2)
+             for _ in range(b)])
+    for b, plen, new, max_len in runs:
+        prompts = rng.integers(0, cfg.vocab, (b, plen)).astype(np.int32)
+        eng = ServeEngine(cfg, params, batch_size=b, max_len=max_len)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run_batch([Request(prompt=q, max_new_tokens=new)
+                              for q in prompts])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = eng.throughput_stats(done, wall)
+        outs = np.asarray([r.out_tokens for r in done], np.int32)
+        if outs.shape != (b, new) or outs.min() < 0 or \
+                outs.max() >= cfg.vocab:
+            fail(f"glm4-9b served {outs.shape} tokens, not ({b}, {new}) "
+                 f"ids in [0, {cfg.vocab})")
+        seq = np.concatenate([prompts, outs], axis=1)
+        serve, state, prefill_s, steps = lm_parity.replay(
+            cfg, params, seq, plen, max_len, dev, timed=True)
+        launches = count_launches(lambda: lm.decode_step(
+            cfg, params, state, torch.from_numpy(seq[:, -1:]).to(dev)))
+        # the forward over the same tokens, padded past 1,024 to a
+        # multiple of the flash chunk (causal: the pad changes nothing
+        # before it)
+        s = seq.shape[1] - 1
+        pad = s if s <= 1024 else -(-s // 1024) * 1024
+        fwd_tokens = np.zeros((b, pad), np.int32)
+        fwd_tokens[:, :s] = seq[:, :s]
+        fwd, _, _ = lm.forward(cfg, params,
+                               {"tokens": torch.from_numpy(fwd_tokens)
+                                .to(dev)})
+        fwd = fwd[:, :s, :cfg.vocab]
+        if not (torch.isfinite(serve).all() and torch.isfinite(fwd).all()):
+            fail(f"glm4-9b ({b} x {plen}): non-finite logits")
+        diff = (serve - fwd).abs()
+        err, mean_err = float(diff.max()), float(diff.mean())
+        del diff
+        top2 = fwd[:, plen - 1:].topk(2, dim=-1)
+        margin = top2.values[..., 0] - top2.values[..., 1]
+        clear = margin > LM_LOGIT_TOL
+        served = torch.from_numpy(outs).to(dev)
+        agree = int((top2.indices[..., 0] == served)[clear].sum())
+        n_clear = int(clear.sum())
+        del serve, fwd, top2
+        step_s = float(np.median(steps))
+        kv_bytes = lm_bytes(state["blocks"]) * plen // max_len
+        decode_bound = (weights + kv_bytes) / HBM_BYTES_PER_S
+        flops = lm_prefill_flops(cfg, b, plen)
+        prefill_bound = max(weights / HBM_BYTES_PER_S,
+                            flops / BF16_OPS_PER_S)
+        log(f"glm4-9b, {b} requests x {plen}-token prompts, {new} new tokens,"
+            f" max_len {max_len} ({'flash' if max_len > 1024 else 'direct'}"
+            f" prefill):")
+        log(f"  engine: {st['new_tokens']} new tokens in {wall:.6f} s = "
+            f"{st['tok_per_s']:.3f} tok/s end to end")
+        log(f"  prefill: {b * plen} tokens in {prefill_s * 1e3:.6f} ms = "
+            f"{b * plen / prefill_s:.1f} tok/s; bound "
+            f"{prefill_bound * 1e3:.6f} ms ({flops} bf16 ops at 989 TFLOP/s)"
+            f", {prefill_bound / prefill_s:.4f} of it")
+        log(f"  decode: median {step_s * 1e3:.6f} ms/step (min "
+            f"{min(steps) * 1e3:.6f}, max {max(steps) * 1e3:.6f}, "
+            f"{len(steps)} steps) = {b / step_s:.1f} tok/s; bound "
+            f"{decode_bound * 1e3:.6f} ms ({weights} B of weights + "
+            f"{kv_bytes} B of cache at 3.35 TB/s), "
+            f"{decode_bound / step_s:.4f} of it; one step: {launches}")
+        log(f"  teacher forcing: serve vs forward logits max |d| {err:.6f} "
+            f"(tolerance {LM_LOGIT_TOL}), mean |d| {mean_err:.3e}; greedy "
+            f"tokens equal the forward's argmax at {agree} of {n_clear} "
+            f"positions whose top-2 margin exceeds {LM_LOGIT_TOL} "
+            f"({b * new} served)")
+        log(f"  card: {smi}")
+        if err > LM_LOGIT_TOL:
+            fail(f"glm4-9b ({b} x {plen}): serve logits differ from the "
+                 f"forward's by {err} > {LM_LOGIT_TOL}")
+        if agree != n_clear:
+            fail(f"glm4-9b ({b} x {plen}): {n_clear - agree} greedy tokens "
+                 "differ from the forward's argmax past the tolerance")
+        del state
+    peak = torch.cuda.max_memory_allocated()
+    log(f"max_memory_allocated: {peak} B ({weights} B of weights)")
+    if peak < weights or weights < 18_799_534_080:
+        fail(f"glm4-9b: {peak} B allocated at peak, {weights} B of weights; "
+             "the full-width model was not resident")
+    del params
+    torch.cuda.empty_cache()
+
+
+def lm_path(lm, configs, Request, ServeEngine, dev, seed: int,
+            smi: str) -> None:
+    """Phase 8: the LM serving path (families dense and vlm)."""
+    from repro_torch.serve import lm_parity
+    log("LM parity at reduced width, float32, the engine on the card "
+        "against the CPU (repro_torch.serve.lm_parity):")
+    glm = configs.reduced(configs.get_config("glm4-9b"))
+    cases = [(configs.reduced(configs.get_config(a)), 24) for a in LM_ARCHS]
+    cases += [(dataclasses.replace(glm, kv_cache_dtype="int8"), 24),
+              (glm, 2048)]
+    for cfg, max_len in cases:
+        try:
+            log("  " + lm_parity.check_card_matches_cpu(
+                cfg, dev, seed=seed, max_len=max_len))
+        except AssertionError as e:
+            fail(f"LM parity: {e}")
+    lm_full_width(lm, configs.get_config, Request, ServeEngine, dev, seed,
+                  smi)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2276,9 +2485,11 @@ def main() -> None:
     from repro_torch.kernels.onehot_wide import ops as wide_ops
     from repro_torch.kernels.onehot_wide import ref as wide_ref
     from repro_torch.kernels.predicate_scan import ref as scan_ref
+    from repro_torch.models import lm
     from repro_torch.models import widedeep as wd
+    from repro_torch import configs
     from repro_torch import serve as S
-    from repro_torch.serve import FeatureService
+    from repro_torch.serve import FeatureService, Request, ServeEngine
     counters = (ops, scan_ops, hist_ops, wide_ops, unpack_ops)
 
     # -- 1. setup ---------------------------------------------------------------
@@ -2578,7 +2789,22 @@ def main() -> None:
     launches.update(table6)
     log(f"phase 7 (Table 6) wall: {time.perf_counter() - phase_t0:.3f} s")
 
-    # -- 8. report ------------------------------------------------------------------
+    # -- 8. LM serving (families dense and vlm) -----------------------------------------
+    phase_t0 = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 matmuls are on: the LM's float32 parity needs full float32")
+    for counter in counters:
+        counter.reset_launches()
+    log("LM serving (no hand-written kernel on this path: cuBLAS products "
+        "and PyTorch ops; the launch counts must stay 0):")
+    lm_path(lm, configs, Request, ServeEngine, dev, args.seed, smi)
+    served = {k: v for counter in counters for k, v in counter.LAUNCHES.items()}
+    log(f"kernels launched on the LM serving path: {served}")
+    if any(served.values()):
+        fail("the LM serving path launched a kernel it has no use for")
+    log(f"phase 8 (LM serving) wall: {time.perf_counter() - phase_t0:.3f} s")
+
+    # -- 9. report ------------------------------------------------------------------
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],

@@ -1,0 +1,63 @@
+"""Flash attention, the forward: an online softmax over KV chunks, so the
+(S, T) score matrix is never held whole (O(S) memory per chunk of keys).
+
+GQA layout: q (B,S,KV,G,dh) [pre-scaled], k/v (B,T,KV,dh). Masking inputs:
+  q_pos (S,) float32 absolute query positions,
+  kbias (T,) float32 additive key bias (0 valid / -1e30 beyond kv_len),
+  window: a host float (<= 0 -> full causal).
+
+The backward (the reference's custom VJP, ``repro/models/flash.py:77-111``)
+comes with the training slice, as a ``torch.autograd.Function``.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: float,
+          kbias: torch.Tensor) -> torch.Tensor:
+    diff = q_pos[:, None] - k_pos[None, :]
+    keep = diff >= 0
+    keep &= diff < (window if window > 0 else 1e18)
+    return torch.where(keep, 0.0, NEG_INF) + kbias[None, :]
+
+
+def _fwd_scan(qg, k, v, q_pos, kbias, window: float, kv_chunk: int):
+    """-> (out (B,S,KV,G,dh) float32, m, l), the running max and
+    denominator per (B,KV,G,S)."""
+    b, s, kvh, g, dh = qg.shape
+    t = k.shape[1]
+    q32 = qg.float()
+    m = torch.full((b, kvh, g, s), NEG_INF, dtype=torch.float32,
+                   device=qg.device)
+    l = torch.zeros((b, kvh, g, s), dtype=torch.float32, device=qg.device)
+    acc = torch.zeros((b, kvh, g, s, dh), dtype=torch.float32,
+                      device=qg.device)
+    for c0 in range(0, t - t % kv_chunk, kv_chunk):
+        ks = k[:, c0:c0 + kv_chunk]
+        vs = v[:, c0:c0 + kv_chunk]
+        scores = torch.einsum("bskgd,btkd->bkgst", q32, ks.float())
+        k_pos = torch.arange(c0, c0 + kv_chunk, dtype=torch.float32,
+                             device=qg.device)
+        scores = scores + _mask(q_pos, k_pos, window,
+                                kbias[c0:c0 + kv_chunk])
+        m_new = torch.maximum(m, scores.amax(dim=-1))
+        alpha = torch.exp(torch.clamp(m - m_new, max=0.0))
+        p = torch.exp(scores - m_new[..., None])
+        p = torch.where(scores <= NEG_INF / 2, 0.0, p)
+        l = l * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bkgsc,bckd->bkgsd", p.to(v.dtype), vs)
+        acc = acc * alpha[..., None] + pv.float()
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.permute(0, 3, 1, 2, 4), m, l        # -> (B,S,KV,G,dh)
+
+
+def flash_attention(qg, k, v, q_pos, kbias, window: float,
+                    kv_chunk: int) -> torch.Tensor:
+    """qg (B,S,KV,G,dh) pre-scaled; k, v (B,T,KV,dh). Returns
+    (B,S,KV,G,dh) in qg's dtype."""
+    out, _, _ = _fwd_scan(qg, k, v, q_pos, kbias, window, kv_chunk)
+    return out.to(qg.dtype)

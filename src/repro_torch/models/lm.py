@@ -1,0 +1,277 @@
+"""LM assembly: embedding (the token dictionary's learned ADV) -> block
+stack (a loop over groups) -> head -> decode.
+
+Public surface:
+  init_params(cfg, generator_or_seed, device)   real tensors, drawn on device
+  param_specs(cfg)                              the same on ``meta`` (no memory)
+  params_from_reference(params, device)         the reference's pytree -> tensors
+  forward(cfg, params, batch, caches)           logits, aux, new_caches
+  init_serve_state(cfg, B, max_len, device)     zeroed caches
+  prefill / decode_step(cfg, params, state, ..) serve steps
+
+Families ``dense`` and ``vlm``; the others raise ``NotImplementedError``
+naming the ROADMAP.md item that ports them. Training (``train_loss``,
+``chunked_ce``, the flash backward) comes with the training slice.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch.utils import _pytree as pytree
+
+from repro_torch.core.pipeline import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.blocks import (APPLY, INIT, StepContext,
+                                       block_pattern, n_groups)
+from repro_torch.models.config import ModelConfig
+
+NEG_INF = -1e30
+
+_NOT_PORTED = {"moe": "5(a), MoE serving",
+               "ssm": "5(b), ssm/hybrid serving",
+               "hybrid": "5(b), ssm/hybrid serving",
+               "audio": "5(c), the audio encoder-decoder"}
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family in _NOT_PORTED:
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP.md "
+            f"Queue 1 item {_NOT_PORTED[cfg.family]})")
+
+
+# =====================================================================
+# meta (per-layer non-trained data, indexed alongside params)
+# =====================================================================
+def build_meta(cfg: ModelConfig) -> list[dict]:
+    """One dict per pattern position; arrays have a leading n_groups dim
+    (host numpy: a layer's window is a host int)."""
+    pat = block_pattern(cfg)
+    g = n_groups(cfg)
+    metas: list[dict] = []
+    for j, kind in enumerate(pat):
+        m: dict = {}
+        if cfg.family == "hybrid":
+            # Hymba: first / middle / last layers keep full attention
+            full = {0, cfg.n_layers // 2, cfg.n_layers - 1}
+            layer_ids = np.array([gi * len(pat) + j for gi in range(g)])
+            m["window"] = np.where(np.isin(layer_ids, list(full)), 0,
+                                   cfg.sliding_window).astype(np.int32)
+        metas.append(m)
+    return metas
+
+
+# =====================================================================
+# params
+# =====================================================================
+def init_params(cfg: ModelConfig, generator_or_seed, device=None) -> dict:
+    """Random parameters in the reference's layout, drawn in float32 from
+    ``generator_or_seed`` (a ``torch.Generator``, or a seed for a generator
+    on ``device``) a slice of each tensor at a time, cast to ``cfg.dtype``
+    on ``device`` (``cuda`` unless named). The numbers differ from JAX's
+    for the same seed: carry a reference's parameters with
+    :func:`params_from_reference` to compare the two."""
+    device = resolve_device(device)
+    _check_family(cfg)
+    gen = generator_or_seed
+    if not isinstance(gen, torch.Generator):
+        gen = torch.Generator(
+            device="cpu" if device.type == "meta" else device)
+        gen.manual_seed(int(generator_or_seed))
+    dt = L.dtype_of(cfg.dtype)
+    g = n_groups(cfg)
+    params: dict = {
+        "embed": L.embed_init(gen, (cfg.padded_vocab, cfg.d_model), dt,
+                              device),
+        "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=device),
+        "blocks": [INIT[kind](cfg, gen, g, device)
+                   for kind in block_pattern(cfg)],
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = L.dense_init(gen, (cfg.d_model, cfg.padded_vocab),
+                                      dt, device)
+    if cfg.family == "vlm":
+        params["vis_proj"] = L.dense_init(gen, (cfg.frontend_dim,
+                                                cfg.d_model), dt, device)
+    return params
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The parameters' shapes and dtypes on the ``meta`` device: nothing is
+    drawn or allocated."""
+    return init_params(cfg, 0, device="meta")
+
+
+def param_count(params) -> int:
+    return sum(t.numel() for t in pytree.tree_leaves(params))
+
+
+def params_from_reference(params, device=None) -> dict:
+    """The reference's parameter pytree, its leaves as numpy arrays (bfloat16
+    ones too), -> the port's tensors on ``device``, same layout and dtypes."""
+    device = resolve_device(device)
+
+    def leaf(a):
+        a = np.array(a)                 # a writable copy
+        if a.dtype.name == "bfloat16":
+            t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+            return t.to(device)
+        return torch.from_numpy(a).to(device)
+
+    return pytree.tree_map(leaf, params)
+
+
+def params_to_numpy(params) -> dict:
+    """The port's parameters as the reference's pytree of numpy arrays
+    (bfloat16 ones as ``ml_dtypes.bfloat16``, JAX's own numpy type)."""
+    def leaf(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            import ml_dtypes
+            return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        return t.numpy()
+
+    return pytree.tree_map(leaf, params)
+
+
+# =====================================================================
+# embedding — the ADV path (paper §6.3): token code -> learned feature row
+# =====================================================================
+def embed_tokens(cfg: ModelConfig, table: torch.Tensor,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    """Rows of ``table`` by token id. An id outside [0, padded_vocab)
+    raises ``IndexError`` (``jnp.take`` would fill NaN)."""
+    if tokens.numel():
+        lo, hi = torch.aminmax(tokens)
+        lo, hi = torch.stack([lo, hi]).tolist()
+        if lo < 0 or hi >= table.shape[0]:
+            raise IndexError(f"token ids in [{lo}, {hi}] outside "
+                             f"[0, {table.shape[0]})")
+    return table[tokens]
+
+
+# =====================================================================
+# block stack (a loop over groups)
+# =====================================================================
+def _unstack(tree, g: int) -> list:
+    """A pytree of (g, ...) tensors -> g pytrees of views, one a group."""
+    leaves, spec = pytree.tree_flatten(tree)
+    per = [leaf.unbind(0) for leaf in leaves]
+    return [pytree.tree_unflatten([p[gi] for p in per], spec)
+            for gi in range(g)]
+
+
+def run_stack(cfg: ModelConfig, params_blocks, metas, x, *, caches=None,
+              pos: int = 0):
+    """-> (x, aux, z, caches). The caches are updated in place: the
+    returned ones are the stacked tensors passed in."""
+    pat = block_pattern(cfg)
+    g = n_groups(cfg)
+    gp = [_unstack(p, g) for p in params_blocks]
+    gc = [_unstack(c, g) for c in caches] if caches is not None else None
+    s = x.shape[1]
+    t = caches[0]["k"].shape[2] if caches is not None else s
+    ctx = StepContext(cfg, s, t, pos, None if caches is None else pos + s,
+                      x.device)
+    aux = z = 0.0
+    for gi in range(g):
+        for j, kind in enumerate(pat):
+            meta = {k: v[gi] for k, v in metas[j].items()}
+            x, _, (a, zz) = APPLY[kind](
+                cfg, gp[j][gi], meta, x,
+                cache=None if gc is None else gc[j][gi], pos=pos, ctx=ctx)
+            aux = aux + a
+            z = z + zz
+    return x, aux, z, caches
+
+
+# =====================================================================
+# forward
+# =====================================================================
+def _hidden(cfg: ModelConfig, params, batch, caches):
+    """Shared trunk: embeddings + the vision projection + block stack +
+    final norm. Returns (x_final, (aux, z), new_caches)."""
+    _check_family(cfg)
+    tokens = batch["tokens"]
+    pos = caches["pos"] if caches is not None else 0
+    x = embed_tokens(cfg, params["embed"], tokens)
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        pp = batch["patch_embeds"].to(x.dtype) @ params["vis_proj"]
+        x = torch.cat([pp, x[:, pp.shape[1]:, :]], dim=1)
+
+    block_caches = caches["blocks"] if caches is not None else None
+    x, aux, z, new_block_caches = run_stack(
+        cfg, params["blocks"], build_meta(cfg), x, caches=block_caches,
+        pos=pos)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+    new_caches = None
+    if caches is not None:
+        new_caches = dict(caches)
+        new_caches["blocks"] = new_block_caches
+        new_caches["pos"] = pos + tokens.shape[1]
+    return x, (aux, z), new_caches
+
+
+def forward(cfg: ModelConfig, params, batch, caches=None):
+    """batch: dict with 'tokens' (B,S) int; vlm: + 'patch_embeds'
+    (B,P,frontend_dim). caches: serve-state dict or None.
+    Returns (logits (B,S,padded_vocab) float32, (aux, z), new_caches)."""
+    x, (aux, z), new_caches = _hidden(cfg, params, batch, caches)
+    head = params.get("head")
+    if head is None:
+        head = params["embed"].T
+    logits = _mask_pad_vocab(cfg, (x @ head).float())
+    return logits, (aux, z), new_caches
+
+
+def _mask_pad_vocab(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
+    if cfg.padded_vocab > cfg.vocab:
+        vmask = torch.arange(cfg.padded_vocab, device=logits.device) < \
+            cfg.vocab
+        logits = torch.where(vmask, logits, NEG_INF)
+    return logits
+
+
+# =====================================================================
+# serving
+# =====================================================================
+def _zero_attn_cache(cfg: ModelConfig, g: int, b: int, max_len: int, dt,
+                     device) -> dict:
+    """KV cache; 'int8' stores dictionary-quantized codes + per-(token,head)
+    float32 scales — the paper's encode-small-integers idea applied to the
+    serving cache (halves decode memory; see blocks._attn_apply)."""
+    shape = (g, b, max_len, cfg.n_kv, cfg.head_dim)
+    if cfg.kv_cache_dtype == "int8":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "ks": torch.zeros(shape[:-1], dtype=torch.float32,
+                                  device=device),
+                "vs": torch.zeros(shape[:-1], dtype=torch.float32,
+                                  device=device)}
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def init_serve_state(cfg: ModelConfig, batch_size: int, max_len: int,
+                     device=None) -> dict:
+    """Zeroed caches on ``device`` (``cuda`` unless named); ``pos`` is a
+    host int."""
+    device = resolve_device(device)
+    _check_family(cfg)
+    dt = L.dtype_of(cfg.dtype)
+    g = n_groups(cfg)
+    caches = [_zero_attn_cache(cfg, g, batch_size, max_len, dt, device)
+              for _ in block_pattern(cfg)]
+    return {"blocks": caches, "pos": 0}
+
+
+def prefill(cfg: ModelConfig, params, state, batch):
+    logits, _, state = forward(cfg, params, batch, caches=state)
+    return logits, state
+
+
+def decode_step(cfg: ModelConfig, params, state, tokens):
+    """tokens (B, 1) -> (logits (B,1,V), new state)."""
+    logits, _, state = forward(cfg, params, {"tokens": tokens}, caches=state)
+    return logits, state

@@ -47,7 +47,8 @@ def test_guard_walks_every_port_package():
     packages = {p.name for p in (ROOT / "src" / "repro_torch").iterdir()
                 if (p / "__init__.py").exists()}
     assert packages <= walked
-    assert {"columnar", "core", "distributed", "kernels", "serve"} <= packages
+    assert {"columnar", "configs", "core", "distributed", "kernels",
+            "launch", "models", "serve"} <= packages
     assert ROOT / "src" / "repro_torch" / "distributed" / "sharding.py" \
         in PORT_FILES
 
@@ -80,6 +81,25 @@ def test_train_entry_points_default_to_cuda(monkeypatch):
     for make in (lambda: wd.init_widedeep(cfg, torch.Generator()),
                  lambda: wd.params_from_reference(wd.params_to_numpy(params)),
                  lambda: analytics_cycle(steps=(1, 1))):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+
+
+def test_lm_entry_points_default_to_cuda(monkeypatch):
+    """The LM's entry points make tensors on ``cuda`` unless the caller
+    names another device, and raise without CUDA: no CPU fallback."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeEngine
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced(get_config("glm4-9b"))
+    params = lm.init_params(cfg, 0, device="cpu")
+    for make in (lambda: lm.init_params(cfg, 0),
+                 lambda: lm.params_from_reference(lm.params_to_numpy(params)),
+                 lambda: lm.init_serve_state(cfg, 1, 8),
+                 lambda: ServeEngine(cfg, params, batch_size=1, max_len=8),
+                 lambda: launch_serve.main(["--preset", "smoke"])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
 

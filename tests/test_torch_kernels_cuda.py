@@ -776,3 +776,54 @@ def test_demote_promote_roundtrip_on_card(cuda):
         else:
             assert a == b
     assert served["cuda"][0] == ["hot", "hot", "warm", "warm"]
+
+
+# -- the LM serving path (no hand-written kernel: cuBLAS products) ------------------
+LM_ARCHS = ("glm4-9b", "qwen2-7b", "minicpm-2b", "starcoder2-15b",
+            "llava-next-mistral-7b")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", LM_ARCHS)
+@pytest.mark.parametrize("max_len", [24, 2048])
+def test_lm_engine_on_card_matches_cpu(cuda, arch, max_len):
+    """The LM at reduced width in float32, the parameters drawn on the CPU
+    and copied: the engine built with no device serves on ``cuda``, and
+    ``lm_parity.check_card_matches_cpu`` (the check phase 8 of
+    ``chip_smoke.py`` runs) holds it to the CPU: greedy tokens equal, and
+    prefill and decode logits within rtol 1e-4 / atol 1e-5 in units of
+    the CPU logits' standard deviation. At max_len 2,048 the prefill takes
+    the flash path."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.serve import lm_parity
+    assert not torch.backends.cuda.matmul.allow_tf32
+    lm_parity.check_card_matches_cpu(reduced(get_config(arch)), seed=1,
+                                     max_len=max_len)
+
+
+@pytest.mark.cuda
+def test_lm_int8_cache_on_card_matches_cpu(cuda):
+    """The int8 KV cache on the card: the quantizer bit for bit on the same
+    input, cache codes at most one apart, logits as above."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.serve import lm_parity
+    cfg = dataclasses.replace(reduced(get_config("glm4-9b")),
+                              kv_cache_dtype="int8")
+    lm_parity.check_card_matches_cpu(cfg, seed=1, max_len=24)
+
+
+@pytest.mark.cuda
+def test_lm_entry_points_default_to_the_card(cuda):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeEngine
+    cfg = reduced(get_config("glm4-9b"))
+    params = lm.init_params(cfg, 0)
+    assert all(t.is_cuda for t in params["blocks"][0]["attn"].values())
+    assert lm.params_from_reference(lm.params_to_numpy(params))[
+        "embed"].is_cuda
+    assert lm.init_serve_state(cfg, 1, 8)["blocks"][0]["k"].is_cuda
+    assert ServeEngine(cfg, params, batch_size=1, max_len=8).device.type \
+        == "cuda"
