@@ -163,8 +163,9 @@ checkout's sources (into build/torch_ext/) and needs one card. Phases:
    gathered row must equal ``AugmentedDictionary.featurize`` bit for bit,
    and the three kernels must have launched.
 8. LM serving — launch counts set to 0 again (no hand-written kernel
-   runs here: the LM's products are cuBLAS calls, as the reference's are
-   XLA's; the counts must stay 0), TF32 off. A: the five dense and vlm
+   runs here: the LM's products, the MoE experts' batched ones too, are
+   cuBLAS calls, as the reference's are XLA's einsums; the counts must
+   stay 0), TF32 off. A: the five dense and vlm
    archs (glm4-9b, qwen2-7b, minicpm-2b, starcoder2-15b,
    llava-next-mistral-7b) at ``reduced()`` in float32, parameters from the
    port's seeded init on the CPU copied to the card: ``ServeEngine`` on
@@ -182,7 +183,29 @@ checkout's sources (into build/torch_ext/) and needs one card. Phases:
    forward| within ``LM_LOGIT_TOL``, the greedy tokens equal the
    forward's argmax wherever its top-2 margin exceeds that tolerance;
    ``max_memory_allocated`` at least the weights' bytes; one decode
-   step's launches from ``torch.profiler``.
+   step's launches from ``torch.profiler``. MoE: A adds reduced
+   moonshot-v1-16b-a3b and llama4-maverick at max_len 24 and 2,048, their
+   expert ids equal on the card and the CPU but for a decision whose CPU
+   top-k margin is under 1e-5, at most 2 a run (``lm_parity.route_flips``;
+   logits held before each sequence's first flip). Then, each model freed
+   before the next, in bf16 drawn on the card from ``--seed``:
+   moonshot-v1-16b-a3b at full width and depth (56,959,045,632 B) and
+   llama4-maverick at full width over 2 of its 48 layers (one dense, one
+   MoE; 37,111,777,280 B). M1, as configured (capacity factor 1.25): 8 x
+   128-token prompts, 32 new, max_len 160; the replay's prefill and decode
+   timed against their bounds (a decode step's bound reads only the
+   distinct experts its tokens chose, from the routing trace; the read of
+   every expert that products over all of them make is logged beside
+   it), the dropped pairs a layer logged, the prefill's logits within
+   ``LM_LOGIT_TOL`` of ``lm.forward`` over exactly the prompts. M2, the
+   same weights at capacity factor E/k + 1 (nothing drops: moonshot 4 x
+   1,024, 16 new, max_len 2,048; maverick 8 x 128 as M1): the served
+   sequence replayed through the serve path with the forward's expert ids
+   forced (``moe.routing_trace``, each position's ids to the call that
+   reads it), within ``LM_LOGIT_TOL`` at every position and its argmax
+   the forward's wherever the forward's top-2 margin exceeds it; the
+   unforced replay's routing flips and greedy agreement logged, not
+   gated.
 9. report — one JSON line per the kernel table, the nvidia-smi line, and
    last ``{"ok": true, "device": {...}}``.
 
@@ -2284,11 +2307,15 @@ def lm_bytes(tree) -> int:
 
 def lm_matmul_params(cfg) -> int:
     """Weights a token multiplies: every block matrix and the head (the
-    embedding is gathered)."""
+    embedding is gathered); of a MoE layer the router, its top_k routed
+    experts and the shared expert."""
     hd, d = cfg.head_dim, cfg.d_model
     attn = d * cfg.n_heads * hd * 2 + d * cfg.n_kv * hd * 2
     mlp = (3 if cfg.mlp_style == "swiglu" else 2) * d * cfg.d_ff
-    return cfg.n_layers * (attn + mlp) + d * cfg.padded_vocab
+    moe = cfg.top_k * 3 * d * cfg.d_ff + d * cfg.n_experts + \
+        (mlp if cfg.shared_expert else 0)
+    return sum(attn + (moe if cfg.is_moe_layer(i) else mlp)
+               for i in range(cfg.n_layers)) + d * cfg.padded_vocab
 
 
 def lm_prefill_flops(cfg, b: int, plen: int) -> int:
@@ -2433,9 +2460,308 @@ def lm_full_width(lm, get_config, Request, ServeEngine, dev, seed: int,
     torch.cuda.empty_cache()
 
 
+# MoE at full width in bf16: (arch, layers kept or None for the config's,
+# the least bytes of weights that must be resident, M1's run, M2's run),
+# each run (requests, prompt tokens, new tokens, max_len). llama4-maverick
+# keeps 2 of its 48 layers (one dense, one MoE): 48 do not fit one card
+MOE_MODELS = (("moonshot-v1-16b-a3b", None, 56_959_045_632,
+               (8, 128, 32, 160), (4, 1024, 16, 2048)),
+              ("llama4-maverick-400b-a17b", 2, 37_111_777_280,
+               (8, 128, 32, 160), (8, 128, 32, 160)))
+
+
+def moe_no_drop(cfg):
+    """``cfg`` with a capacity factor at which a call of S tokens has a
+    capacity of at least S (S * k / E * (E / k + 1) >= S): no pair drops,
+    so the serve path's calls route as the forward's."""
+    return dataclasses.replace(cfg, capacity_factor=cfg.n_experts /
+                               cfg.top_k + 1)
+
+
+class MoERun:
+    """One full-width MoE model's runs (``lm_moe_full_width``): its
+    modules, parameters and byte counts."""
+
+    def __init__(self, mods, cfg, params, dev, smi: str):
+        self.lm, self.moe, self.lm_parity = mods
+        self.cfg, self.params, self.dev, self.smi = cfg, params, dev, smi
+        self.n_moe = cfg.n_moe_layers
+        self.weights = lm_bytes(params)
+        # one expert's three matrices in one layer, and what a decode
+        # step reads besides the routed experts (every other weight; of
+        # the embedding only its B rows, left out)
+        d, f = cfg.d_model, cfg.d_ff
+        elem = params["embed"].element_size()
+        self.expert_bytes = 3 * d * f * elem
+        all_experts = self.n_moe * cfg.n_experts * self.expert_bytes
+        self.rest_bytes = self.weights - all_experts - \
+            lm_bytes(params["embed"])
+        self.all_expert_bytes = all_experts
+
+    def serve(self, cfg, prompts, new: int, max_len: int):
+        """The engine's greedy tokens (B, new) and its wall."""
+        from repro_torch.serve import Request, ServeEngine
+        eng = ServeEngine(cfg, self.params, batch_size=prompts.shape[0],
+                          max_len=max_len)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run_batch([Request(prompt=q, max_new_tokens=new)
+                              for q in prompts])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        outs = np.asarray([r.out_tokens for r in done], np.int32)
+        if outs.shape != (prompts.shape[0], new) or outs.min() < 0 or \
+                outs.max() >= cfg.vocab:
+            fail(f"{cfg.name} served {outs.shape} tokens, not "
+                 f"({prompts.shape[0]}, {new}) ids in [0, {cfg.vocab})")
+        return outs, wall
+
+    def forward(self, cfg, tokens: np.ndarray):
+        """``lm.forward`` over ``tokens`` (B, S) under a routing trace,
+        padded past 1,024 to a multiple of the flash chunk (causal: the
+        pad changes nothing before it). -> (logits (B, S, vocab), the
+        routing table over the S positions)."""
+        b, s = tokens.shape
+        pad = s if s <= 1024 else -(-s // 1024) * 1024
+        padded = np.zeros((b, pad), np.int32)
+        padded[:, :s] = tokens
+        with self.moe.routing_trace() as tr:
+            out, _, _ = self.lm.forward(
+                cfg, self.params, {"tokens": torch.from_numpy(padded)
+                                   .to(self.dev)})
+        fwd = out[:, :s, :cfg.vocab].contiguous()
+        del out
+        table = self.lm_parity.routing_table(tr.calls, self.n_moe)
+        for t in table:
+            t["idx"], t["margin"] = t["idx"][:, :s], t["margin"][:, :s]
+            t["dropped"] = t["dropped"][:, :s]
+        return fwd, table
+
+    def timed_replay(self, cfg, seq, plen: int, max_len: int):
+        """The serve path over ``seq`` (teacher forcing, timed) under a
+        routing trace: (logits, state, prefill s, step s, routing table).
+        Recording keeps views of tensors the layer makes anyway: it adds
+        no launch."""
+        with self.moe.routing_trace() as tr:
+            out = self.lm_parity.replay(cfg, self.params, seq, plen, max_len,
+                                        self.dev, timed=True)
+        return (*out, tr.calls)
+
+    def bounds(self, cfg, state, calls, b: int, plen: int, max_len: int):
+        """The prefill bound (weights at 3.35 TB/s, or the active
+        parameters' and attention's bf16 ops at 989 TFLOP/s) and, per
+        decode step of ``calls``, the bytes it must read: every weight but
+        the embedding's table and the routed experts, the distinct experts
+        its B tokens chose in each MoE layer, and the cache filled to the
+        prompt. -> (prefill s, ops, median step bound s, median distinct
+        experts a layer, all-expert step bound s)."""
+        ops = lm_prefill_flops(cfg, b, plen)
+        prefill = max(self.weights / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S)
+        kv = lm_bytes(state["blocks"]) * plen // max_len
+        steps = [calls[i:i + self.n_moe]
+                 for i in range(self.n_moe, len(calls), self.n_moe)]
+        distinct = [sum(int(c.idx.unique().numel()) for c in step)
+                    for step in steps]
+        median = statistics.median(distinct)
+        step = (self.rest_bytes + median * self.expert_bytes + kv) / \
+            HBM_BYTES_PER_S
+        every = (self.rest_bytes + self.all_expert_bytes + kv) / \
+            HBM_BYTES_PER_S
+        return prefill, ops, step, median / self.n_moe, every
+
+    def log_times(self, cfg, b, plen, new, wall, prefill_s, steps, launches,
+                  bounds):
+        prefill_b, ops, step_b, per_layer, every = bounds
+        step_s = float(np.median(steps))
+        log(f"  engine: {b * new} new tokens in {wall:.6f} s = "
+            f"{b * new / wall:.3f} tok/s end to end")
+        log(f"  prefill: {b * plen} tokens in {prefill_s * 1e3:.6f} ms = "
+            f"{b * plen / prefill_s:.1f} tok/s; bound "
+            f"{prefill_b * 1e3:.6f} ms (max of {self.weights} B at 3.35 "
+            f"TB/s and {ops} bf16 ops at 989 TFLOP/s), "
+            f"{prefill_b / prefill_s:.4f} of it")
+        log(f"  decode: median {step_s * 1e3:.6f} ms/step (min "
+            f"{min(steps) * 1e3:.6f}, max {max(steps) * 1e3:.6f}, "
+            f"{len(steps)} steps) = {b / step_s:.1f} tok/s; bound "
+            f"{step_b * 1e3:.6f} ms (the distinct experts a step's {b} "
+            f"tokens chose, median {per_layer:.2f} of {cfg.n_experts} a "
+            f"layer, {self.expert_bytes} B each, plus {self.rest_bytes} B "
+            f"of other weights and the cache at 3.35 TB/s), "
+            f"{step_b / step_s:.4f} of it; reading every expert, as "
+            f"products over all of them do: {every * 1e3:.6f} ms, "
+            f"{every / step_s:.4f} of it; one step: {launches}")
+
+    def m1(self, rng, run) -> None:
+        """As configured: the engine, the replay (timed), the dropped
+        pairs per layer, and the prefill's logits held against the
+        forward over exactly the prompts (padding would change the
+        capacity)."""
+        cfg, dev = self.cfg, self.dev
+        b, plen, new, max_len = run
+        name = f"{cfg.name} M1 ({b} x {plen}, capacity factor " \
+            f"{cfg.capacity_factor})"
+        prompts = rng.integers(0, cfg.vocab, (b, plen)).astype(np.int32)
+        outs, wall = self.serve(cfg, prompts, new, max_len)
+        seq = np.concatenate([prompts, outs], axis=1)
+        serve, state, prefill_s, steps, calls = self.timed_replay(
+            cfg, seq, plen, max_len)
+        launches = count_launches(lambda: self.lm.decode_step(
+            cfg, self.params, state, torch.from_numpy(seq[:, -1:]).to(dev)))
+        bounds = self.bounds(cfg, state, calls, b, plen, max_len)
+        k = cfg.top_k
+        dropped = [float((~c.keep).sum()) / (b * plen * k)
+                   for c in calls[:self.n_moe]]
+        later = sum(int((~c.keep).sum()) for c in calls[self.n_moe:])
+        fwd, _ = self.forward(cfg, prompts)
+        pre = serve[:, :plen]
+        finite = bool(torch.isfinite(pre).all() and
+                      torch.isfinite(fwd).all())
+        err = float((pre - fwd).abs().max())
+        mean_err = float((pre - fwd).abs().mean())
+        del serve, fwd, pre, state
+        log(f"{name}, {new} new tokens, max_len {max_len}:")
+        self.log_times(cfg, b, plen, new, wall, prefill_s, steps, launches,
+                       bounds)
+        log(f"  dropped pairs a MoE layer in the prefill (of {b * plen * k}"
+            f"): min {min(dropped):.4f}, median "
+            f"{statistics.median(dropped):.4f}, max {max(dropped):.4f}; "
+            f"by layer {[round(x, 4) for x in dropped]}; in decode steps "
+            f"{later}")
+        log(f"  prefill vs forward over the prompts: max |d| {err:.6f} "
+            f"(tolerance {LM_LOGIT_TOL}), mean |d| {mean_err:.3e}")
+        log(f"  card: {self.smi}")
+        if not finite:
+            fail(f"{name}: non-finite logits")
+        if err > LM_LOGIT_TOL:
+            fail(f"{name}: prefill logits differ from the forward's by "
+                 f"{err} > {LM_LOGIT_TOL}")
+
+    def m2(self, rng, run) -> None:
+        """At a capacity where nothing drops: the engine, then teacher
+        forcing over the served tokens with the forward's expert ids
+        forced (each position's ids to the call that reads it), held at
+        every position; the unforced replay (timed) logged against the
+        forward."""
+        lm_parity = self.lm_parity
+        cfg, dev = moe_no_drop(self.cfg), self.dev
+        b, plen, new, max_len = run
+        name = f"{cfg.name} M2 ({b} x {plen}, capacity factor " \
+            f"{cfg.capacity_factor:.4f})"
+        prompts = rng.integers(0, cfg.vocab, (b, plen)).astype(np.int32)
+        outs, wall = self.serve(cfg, prompts, new, max_len)
+        seq = np.concatenate([prompts, outs], axis=1)
+        s = seq.shape[1] - 1
+        spans = lm_parity.replay_spans(plen, s)
+        fwd, ftab = self.forward(cfg, seq[:, :s])
+        with self.moe.routing_trace(
+                forced=lm_parity.forced_routes(ftab, spans)) as tr:
+            forced, _, _, _ = lm_parity.replay(cfg, self.params, seq, plen,
+                                               max_len, dev)
+        drops = sum(int(t["dropped"].sum()) for t in ftab) + \
+            sum(int((~c.keep).sum()) for c in tr.calls)
+        finite = bool(torch.isfinite(forced).all() and
+                      torch.isfinite(fwd).all())
+        err = float((forced - fwd).abs().max())
+        mean_err = float((forced - fwd).abs().mean())
+        top2 = fwd.topk(2, dim=-1)
+        clear = top2.values[..., 0] - top2.values[..., 1] > LM_LOGIT_TOL
+        same = forced.argmax(dim=-1) == top2.indices[..., 0]
+        n_clear, agree = int(clear.sum()), int((same & clear).sum())
+        # the served greedy tokens against the forward's argmax
+        gclear = clear[:, plen - 1:]
+        served = torch.from_numpy(outs[:, :s - plen + 1]).to(dev)
+        gagree = int(((top2.indices[:, plen - 1:, 0] == served) &
+                      gclear).sum())
+        del forced, top2, same
+        serve, state, prefill_s, steps, calls = self.timed_replay(
+            cfg, seq, plen, max_len)
+        launches = count_launches(lambda: self.lm.decode_step(
+            cfg, self.params, state, torch.from_numpy(seq[:, -1:]).to(dev)))
+        bounds = self.bounds(cfg, state, calls, b, plen, max_len)
+        rtab = lm_parity.routing_table(calls, self.n_moe)
+        differ = torch.stack([(r["idx"] != f["idx"]).any(dim=-1)
+                              for r, f in zip(rtab, ftab)])      # (L,B,S)
+        hit = differ.any(dim=0)                                   # (B,S)
+        first = torch.where(hit, torch.arange(s), s).amin(dim=1)
+        margins = [float(ftab[int(differ[:, q, int(first[q])].nonzero()[0])]
+                         ["margin"][q, int(first[q])])
+                   for q in range(b) if int(first[q]) < s]
+        held = torch.arange(s)[None, :] < first[:, None]
+        d = (serve - fwd).abs().amax(dim=-1).cpu()
+        free_err = float(d[held].max()) if held.any() else 0.0
+        del serve, fwd, state, d
+        log(f"{name}, {new} new tokens, max_len {max_len}:")
+        self.log_times(cfg, b, plen, new, wall, prefill_s, steps, launches,
+                       bounds)
+        log(f"  teacher forcing with the forward's experts forced: max |d| "
+            f"{err:.6f} over all {b * s} positions (tolerance "
+            f"{LM_LOGIT_TOL}), mean |d| {mean_err:.3e}; argmax equal to the "
+            f"forward's at {agree} of {n_clear} positions whose top-2 "
+            f"margin exceeds {LM_LOGIT_TOL}; {drops} pairs dropped")
+        log(f"  unforced (not gated): {int(differ.sum())} of "
+            f"{self.n_moe * b * s} routing decisions differ from the "
+            f"forward's, first flips at positions "
+            f"{[p if p < s else None for p in first.tolist()]} (forward "
+            f"top-k margins there {[f'{m:.3e}' for m in margins]}); max |d| "
+            f"{free_err:.6f} before them; served greedy tokens equal the "
+            f"forward's argmax at {gagree} of {int(gclear.sum())} positions "
+            f"whose top-2 margin exceeds {LM_LOGIT_TOL}")
+        log(f"  card: {self.smi}")
+        if not finite:
+            fail(f"{name}: non-finite logits")
+        if drops:
+            fail(f"{name}: {drops} pairs dropped at a capacity past S")
+        if err > LM_LOGIT_TOL:
+            fail(f"{name}: with the forward's experts forced, serve logits "
+                 f"differ from the forward's by {err} > {LM_LOGIT_TOL}")
+        if agree != n_clear:
+            fail(f"{name}: {n_clear - agree} argmaxes differ from the "
+                 "forward's past the tolerance")
+
+
+def lm_moe_full_width(lm, get_config, dev, seed: int, smi: str) -> None:
+    """moonshot-v1-16b-a3b at full width and depth and llama4-maverick at
+    full width over two layers, in bf16, weights drawn on the card from
+    ``seed``, each freed before the next: M1 as configured, M2 at a
+    capacity where nothing drops."""
+    from repro_torch.models import moe
+    from repro_torch.serve import lm_parity, Request, ServeEngine
+    for arch, layers, least, run1, run2 in MOE_MODELS:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = lm.init_params(cfg, seed, device=dev)
+        torch.cuda.synchronize()
+        r = MoERun((lm, moe, lm_parity), cfg, params, dev, smi)
+        cut = "" if layers is None else \
+            f", n_layers reduced 48 -> {layers} (one dense, one MoE layer)"
+        log(f"{arch}: {lm.param_count(params)} parameters, {r.weights} B "
+            f"of bf16 weights (router float32) drawn on the card in "
+            f"{time.perf_counter() - t0:.3f} s{cut}; "
+            f"{lm_matmul_params(cfg)} weights multiplied a token")
+        # warm-up at each run's shapes and capacity, two tokens, not timed
+        for c, (b, plen, _, max_len) in ((cfg, run1),
+                                         (moe_no_drop(cfg), run2)):
+            ServeEngine(c, params, batch_size=b, max_len=max_len).run_batch(
+                [Request(prompt=np.zeros(plen, np.int32), max_new_tokens=2)
+                 for _ in range(b)])
+        rng = np.random.default_rng(seed + 2)
+        r.m1(rng, run1)
+        r.m2(rng, run2)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"max_memory_allocated: {peak} B ({r.weights} B of weights)")
+        if peak < r.weights or r.weights < least:
+            fail(f"{arch}: {peak} B allocated at peak, {r.weights} B of "
+                 f"weights (at least {least}); the model was not resident")
+        del params, r
+        torch.cuda.empty_cache()
+
+
 def lm_path(lm, configs, Request, ServeEngine, dev, seed: int,
             smi: str) -> None:
-    """Phase 8: the LM serving path (families dense and vlm)."""
+    """Phase 8: the LM serving path (families dense, vlm and moe)."""
     from repro_torch.serve import lm_parity
     log("LM parity at reduced width, float32, the engine on the card "
         "against the CPU (repro_torch.serve.lm_parity):")
@@ -2443,6 +2769,8 @@ def lm_path(lm, configs, Request, ServeEngine, dev, seed: int,
     cases = [(configs.reduced(configs.get_config(a)), 24) for a in LM_ARCHS]
     cases += [(dataclasses.replace(glm, kv_cache_dtype="int8"), 24),
               (glm, 2048)]
+    cases += [(configs.reduced(configs.get_config(a)), n)
+              for a, *_ in MOE_MODELS for n in (24, 2048)]
     for cfg, max_len in cases:
         try:
             log("  " + lm_parity.check_card_matches_cpu(
@@ -2451,6 +2779,7 @@ def lm_path(lm, configs, Request, ServeEngine, dev, seed: int,
             fail(f"LM parity: {e}")
     lm_full_width(lm, configs.get_config, Request, ServeEngine, dev, seed,
                   smi)
+    lm_moe_full_width(lm, configs.get_config, dev, seed, smi)
 
 
 def main() -> None:
@@ -2789,7 +3118,7 @@ def main() -> None:
     launches.update(table6)
     log(f"phase 7 (Table 6) wall: {time.perf_counter() - phase_t0:.3f} s")
 
-    # -- 8. LM serving (families dense and vlm) -----------------------------------------
+    # -- 8. LM serving (families dense, vlm and moe) ----------------------------------
     phase_t0 = time.perf_counter()
     if torch.backends.cuda.matmul.allow_tf32:
         fail("TF32 matmuls are on: the LM's float32 parity needs full float32")

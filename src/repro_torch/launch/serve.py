@@ -1,10 +1,13 @@
-"""Serving driver: batched requests against a ``dense`` or ``vlm`` --arch
-on --device (``cuda`` unless named). Weights are drawn from --seed on the
-device, at any preset; nothing is loaded.
+"""Serving launcher: batched requests against a ``dense``, ``vlm`` or
+``moe`` --arch on --device (``cuda`` unless named). Weights are drawn from
+--seed on the device, at any preset; nothing is loaded.
 
-Example (glm4-9b at full width on one card, ~18.8 GB of bf16 weights):
+Examples (at full width on one card: glm4-9b, ~18.8 GB of bf16 weights;
+moonshot-v1-16b-a3b, ~57.0 GB; llama4-maverick's ~795 GB do not fit one):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \\
       --preset full --requests 8
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch moonshot-v1-16b-a3b --preset full --requests 8
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """Block definitions + initializers, the ``dense`` kind (families ``dense``
-and ``vlm``).
+and ``vlm``) and the ``moe`` kind (family ``moe``).
 
 Layers are organized as a repeating *pattern* of block kinds (e.g. llama4:
 ``['dense', 'moe']`` x 24 groups; xLSTM: ``['mlstm']*7 + ['slstm']`` x 6).
@@ -14,9 +14,9 @@ Each kind implements:
 
 ``ctx`` is the forward's :class:`StepContext`: what every layer shares.
 
-Only ``dense`` is ported. The other kinds (``moe``, ``mlstm``, ``slstm``,
+``dense`` and ``moe`` are ported. The other kinds (``mlstm``, ``slstm``,
 ``hymba``, ``xdec``, ``enc``) and cross-attention come with ROADMAP.md
-Queue 1 items 5(a)-(c); ``block_pattern`` and ``n_groups`` are whole,
+Queue 1 items 5(b)-(c); ``block_pattern`` and ``n_groups`` are whole,
 because ``configs.reduced`` reads them for every arch.
 """
 from __future__ import annotations
@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.models import moe
 from repro_torch.models.attention import (attention, attention_mask,
                                           is_direct)
 from repro_torch.models.config import ModelConfig
@@ -217,5 +218,44 @@ def apply_dense(cfg: ModelConfig, p, meta, x, *, cache, pos: int,
     return x, cache, (0.0, 0.0)
 
 
-INIT = {"dense": init_dense}
-APPLY = {"dense": apply_dense}
+# =====================================================================
+# MoE block
+# =====================================================================
+def init_moe(cfg: ModelConfig, generator, n: int, device):
+    """The router is float32 whatever ``cfg.dtype`` is, as the
+    reference's."""
+    dt = L.dtype_of(cfg.dtype)
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    p = {"ln1": torch.ones((n, d), dtype=dt, device=device),
+         "ln2": torch.ones((n, d), dtype=dt, device=device),
+         "attn": _attn_init(cfg, generator, n, dt, device),
+         "router": L.dense_init(generator, (n, d, e), torch.float32, device),
+         "we_gate": L.dense_init(generator, (n, e, d, f), dt, device),
+         "we_up": L.dense_init(generator, (n, e, d, f), dt, device),
+         "we_down": L.dense_init(generator, (n, e, f, d), dt, device)}
+    if cfg.shared_expert:
+        p["shared"] = _mlp_init(cfg, generator, n, dt, device)
+    return p
+
+
+def apply_moe(cfg: ModelConfig, p, meta, x, *, cache, pos: int,
+              ctx: StepContext):
+    """The attention window is the config's (``meta`` is not read), as the
+    reference's; the shared expert is added to the routed experts' output
+    before the residual."""
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    attn_out, cache = _attn_apply(cfg, p["attn"], h, cache=cache, pos=pos,
+                                  window=cfg.sliding_window or 0, ctx=ctx)
+    x = x + attn_out
+    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    moe_out, aux, z = moe.moe_ff(h, p["router"], p["we_gate"], p["we_up"],
+                                 p["we_down"], top_k=cfg.top_k,
+                                 cap_factor=cfg.capacity_factor)
+    if "shared" in p:
+        moe_out = moe_out + _mlp_apply(p["shared"], h)
+    x = x + moe_out
+    return x, cache, (aux, z)
+
+
+INIT = {"dense": init_dense, "moe": init_moe}
+APPLY = {"dense": apply_dense, "moe": apply_moe}

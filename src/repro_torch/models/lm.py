@@ -9,9 +9,11 @@ Public surface:
   init_serve_state(cfg, B, max_len, device)     zeroed caches
   prefill / decode_step(cfg, params, state, ..) serve steps
 
-Families ``dense`` and ``vlm``; the others raise ``NotImplementedError``
-naming the ROADMAP.md item that ports them. Training (``train_loss``,
-``chunked_ce``, the flash backward) comes with the training slice.
+Families ``dense``, ``vlm`` and ``moe``; the others raise
+``NotImplementedError`` naming the ROADMAP.md item that ports them. A MoE
+layer's load-balance and z losses are summed over the stack, as the
+reference sums them. Training (``train_loss``, ``chunked_ce``, the flash
+backward) comes with the training slice.
 """
 from __future__ import annotations
 
@@ -27,8 +29,7 @@ from repro_torch.models.config import ModelConfig
 
 NEG_INF = -1e30
 
-_NOT_PORTED = {"moe": "5(a), MoE serving",
-               "ssm": "5(b), ssm/hybrid serving",
+_NOT_PORTED = {"ssm": "5(b), ssm/hybrid serving",
                "hybrid": "5(b), ssm/hybrid serving",
                "audio": "5(c), the audio encoder-decoder"}
 
@@ -255,7 +256,8 @@ def _zero_attn_cache(cfg: ModelConfig, g: int, b: int, max_len: int, dt,
 
 def init_serve_state(cfg: ModelConfig, batch_size: int, max_len: int,
                      device=None) -> dict:
-    """Zeroed caches on ``device`` (``cuda`` unless named); ``pos`` is a
+    """Zeroed caches on ``device`` (``cuda`` unless named): attention K/V
+    for each ``dense`` and ``moe`` position of the pattern; ``pos`` is a
     host int."""
     device = resolve_device(device)
     _check_family(cfg)

@@ -14,6 +14,18 @@ a half step rounds one way on the card and the other on the CPU. Such a
 code may differ by one, at most :data:`MAX_CODE_FLIPS` times in a run; the
 logits are then held at the same tolerance on every position of each
 sequence before its first differing code (a later position reads it).
+
+MoE routing has the same kind of edge: where the k-th and (k+1)-th
+router probabilities lie within rounding of each other, the card and the
+CPU can choose another expert, and that moves the token's output by a
+whole expert's share. Both replays record their routing
+(``moe.routing_trace``), and the expert ids must be equal. The one
+exception is a decision whose top-k margin on the CPU is under
+:data:`ROUTE_MARGIN` (float32 rounds probabilities at ~1e-7), at most
+:data:`MAX_ROUTE_FLIPS` in a run; the logits are then held on every
+position of each sequence before its first such flip, or before the call
+that held it when that call dropped pairs of the sequence at its capacity
+(the slots of the others follow the flip). Greedy tokens stay equal.
 """
 from __future__ import annotations
 
@@ -24,11 +36,13 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.core.pipeline import resolve_device
-from repro_torch.models import blocks, lm
+from repro_torch.models import blocks, lm, moe
 from repro_torch.serve.engine import Request, ServeEngine
 
 RTOL, ATOL = 1e-4, 1e-5        # atol in units of the CPU logits' std
 MAX_CODE_FLIPS = 8             # int8 codes one apart, per run
+MAX_ROUTE_FLIPS = 2            # MoE expert choices that differ, per run
+ROUTE_MARGIN = 1e-5            # the CPU's top-k margin under which they may
 PROMPT, NEW, BATCH = 6, 8, 3
 
 
@@ -83,13 +97,79 @@ def _code_flips(card_state, cpu_state, s: int):
     return flips, first
 
 
+def replay_spans(plen: int, s: int) -> list[tuple[int, int]]:
+    """The positions each forward call of :func:`replay` reads: the
+    prefill's [0, plen), then one decode step a position up to ``s``."""
+    return [(0, plen)] + [(i, i + 1) for i in range(plen, s)]
+
+
+def routing_table(calls: list, n_moe: int) -> list[dict]:
+    """A run's ``routing_trace().calls`` (``n_moe`` a forward call, in
+    call order) -> one dict a MoE layer over the whole sequence, the
+    calls' positions laid end to end, on the CPU: ``idx`` (B,S,k),
+    ``margin`` (B,S), and ``dropped`` (B,S): the call holding the
+    position dropped a pair of that sequence at its capacity."""
+    out = []
+    for layer in range(n_moe):
+        mine = calls[layer::n_moe]
+        out.append({
+            "idx": torch.cat([c.idx.cpu() for c in mine], dim=1),
+            "margin": torch.cat([c.margin.cpu() for c in mine], dim=1),
+            "dropped": torch.cat([(~c.keep).any(dim=(1, 2))[:, None]
+                                  .expand(c.keep.shape[:2]).cpu()
+                                  for c in mine], dim=1)})
+    return out
+
+
+def forced_routes(table: list[dict], spans: list[tuple[int, int]]) -> list:
+    """The expert ids of a :func:`routing_table` over one forward call,
+    cut to the calls of a run over ``spans`` (:func:`replay_spans`), in
+    call order, for ``moe.routing_trace(forced=...)``."""
+    return [layer["idx"][:, a:b] for a, b in spans for layer in table]
+
+
+def route_flips(cpu: list[dict], card: list[dict], spans) -> tuple:
+    """Two runs' :func:`routing_table` over the same tokens -> (flips,
+    first (B,)). Per sequence, the first position whose expert ids differ
+    in any layer is a flip, taken at its first differing layer; its CPU
+    top-k margin must be under :data:`ROUTE_MARGIN`. ``first`` is that
+    position, or the start of the call holding it when that call dropped
+    pairs of the sequence (``spans``); positions from there on are not
+    compared (their inputs differ by the flip). Raises ``AssertionError``
+    on a flip with a clear margin."""
+    b, s = cpu[0]["idx"].shape[:2]
+    differ = torch.stack([(c["idx"] != d["idx"]).any(dim=-1)
+                          for c, d in zip(cpu, card)])           # (L,B,S)
+    first = torch.full((b,), s)
+    flips = 0
+    for seq in range(b):
+        at = differ[:, seq].any(dim=0).nonzero()
+        if not len(at):
+            continue
+        p = int(at[0])
+        layer = int(differ[:, seq, p].nonzero()[0])
+        margin = float(cpu[layer]["margin"][seq, p])
+        if not margin < ROUTE_MARGIN:
+            raise AssertionError(
+                f"sequence {seq}, position {p}, MoE layer {layer}: experts "
+                f"{card[layer]['idx'][seq, p].tolist()} on the card, "
+                f"{cpu[layer]['idx'][seq, p].tolist()} on the CPU, whose "
+                f"top-k margin {margin:.3e} is not under {ROUTE_MARGIN}")
+        flips += 1
+        start = next(a for a, e in spans if a <= p < e)
+        dropped = any(bool(t["dropped"][seq, p]) for t in cpu + card)
+        first[seq] = start if dropped else p
+    return flips, first
+
+
 def check_card_matches_cpu(cfg, device=None, *, seed: int,
                            max_len: int) -> str:
     """One reduced float32 config: the port's seeded init on the CPU, copied
     to ``device`` (``cuda`` unless named); the engine on the card against
     the same engine on the CPU (greedy tokens equal), then teacher-forced
-    prefill and decode logits over those tokens. Raises ``AssertionError``
-    on a difference; returns a line that says what was compared."""
+    prefill and decode logits over those tokens, a MoE model's expert ids
+    under :func:`route_flips`. Raises ``AssertionError`` on a difference;
+    returns a line that says what was compared."""
     device = resolve_device(device)
     cpu = torch.device("cpu")
     params = lm.init_params(cfg, seed, device=cpu)
@@ -111,13 +191,29 @@ def check_card_matches_cpu(cfg, device=None, *, seed: int,
         raise AssertionError(f"{what}: greedy tokens on the card {toks[1]} "
                              f"differ from the CPU's {toks[0]}")
     seq = np.concatenate([prompts, np.asarray(toks[0], np.int32)], axis=1)
-    cpu_l, cpu_s, _, _ = replay(cfg, params, seq, PROMPT, max_len, cpu,
-                                patches)
-    card_l, card_s, _, _ = replay(cfg, on_card, seq, PROMPT, max_len,
-                                  device, patches)
+    with moe.routing_trace() as cpu_tr:
+        cpu_l, cpu_s, _, _ = replay(cfg, params, seq, PROMPT, max_len, cpu,
+                                    patches)
+    with moe.routing_trace() as card_tr:
+        card_l, card_s, _, _ = replay(cfg, on_card, seq, PROMPT, max_len,
+                                      device, patches)
     card_l = card_l.cpu()
     s = cpu_l.shape[1]
     flips, first = 0, torch.full((BATCH,), s)
+    routes = ""
+    n_moe = cfg.n_moe_layers
+    if n_moe:
+        tables = [routing_table(tr.calls, n_moe) for tr in (cpu_tr, card_tr)]
+        try:
+            route_n, first = route_flips(*tables, replay_spans(PROMPT, s))
+        except AssertionError as e:
+            raise AssertionError(f"{what}: {e}") from None
+        if route_n > MAX_ROUTE_FLIPS:
+            raise AssertionError(f"{what}: {route_n} MoE routing flips "
+                                 f"(at most {MAX_ROUTE_FLIPS})")
+        least = min(float(t["margin"].min()) for t in tables[0])
+        routes = (f", {n_moe} MoE layers x {BATCH * s} positions routed, "
+                  f"{route_n} flips (least CPU top-k margin {least:.3e})")
     if cfg.kv_cache_dtype == "int8":
         # the quantizer itself, on the same float32 input: bit for bit
         x = torch.from_numpy(rng.standard_normal(
@@ -127,7 +223,8 @@ def check_card_matches_cpu(cfg, device=None, *, seed: int,
             if not torch.equal(got.cpu(), want):
                 raise AssertionError(f"{what}: the int8 quantizer on the "
                                      "card differs from the CPU's")
-        flips, first = _code_flips(card_s, cpu_s, s)
+        flips, code_first = _code_flips(card_s, cpu_s, s)
+        first = torch.minimum(first, code_first)
         if flips > MAX_CODE_FLIPS:
             raise AssertionError(f"{what}: {flips} int8 codes differ between "
                                  f"the card and the CPU (at most "
@@ -144,7 +241,7 @@ def check_card_matches_cpu(cfg, device=None, *, seed: int,
                 f"{what}: logits on the card differ from the CPU's by up to "
                 f"{err:.3e} std (rtol {RTOL}, atol {ATOL} std)")
     compared = int(first.sum()) * cfg.vocab
-    note = f", {flips} int8 codes one apart" if flips else ""
+    note = (f", {flips} int8 codes one apart" if flips else "") + routes
     return (f"{what}: {sum(map(len, toks[0]))} greedy tokens equal, "
             f"{compared} logits within rtol {RTOL} / atol {ATOL} std "
             f"(max |d| {err:.3e} std, std {scale:.4f}){note}")

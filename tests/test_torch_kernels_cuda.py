@@ -780,7 +780,8 @@ def test_demote_promote_roundtrip_on_card(cuda):
 
 # -- the LM serving path (no hand-written kernel: cuBLAS products) ------------------
 LM_ARCHS = ("glm4-9b", "qwen2-7b", "minicpm-2b", "starcoder2-15b",
-            "llava-next-mistral-7b")
+            "llava-next-mistral-7b", "moonshot-v1-16b-a3b",
+            "llama4-maverick-400b-a17b")
 
 
 @pytest.mark.cuda
@@ -792,13 +793,51 @@ def test_lm_engine_on_card_matches_cpu(cuda, arch, max_len):
     ``lm_parity.check_card_matches_cpu`` (the check phase 8 of
     ``chip_smoke.py`` runs) holds it to the CPU: greedy tokens equal, and
     prefill and decode logits within rtol 1e-4 / atol 1e-5 in units of
-    the CPU logits' standard deviation. At max_len 2,048 the prefill takes
-    the flash path."""
+    the CPU logits' standard deviation (a MoE arch's expert ids equal but
+    for near-ties, ``lm_parity.route_flips``). At max_len 2,048 the
+    prefill takes the flash path."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.serve import lm_parity
     assert not torch.backends.cuda.matmul.allow_tf32
     lm_parity.check_card_matches_cpu(reduced(get_config(arch)), seed=1,
                                      max_len=max_len)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_ff_on_card_makes_no_host_sync(cuda, dtype):
+    """``moe_ff`` on the card under ``set_sync_debug_mode("error")`` (any
+    host synchronisation raises): a prefill-sized call whose capacity drops
+    pairs, and a decode-sized one. Its float32 output against the same call
+    on the CPU, expert ids equal."""
+    from repro_torch.models import moe
+    gen = torch.Generator().manual_seed(0)
+    d, f, e, k = 64, 96, 16, 3
+    w = [torch.randn(shape, generator=gen) / shape[-2] ** 0.5
+         for shape in ((d, e), (e, d, f), (e, d, f), (e, f, d))]
+    for g, s, factor in ((4, 64, 1.0), (8, 1, 1.25)):
+        x = torch.randn((g, s, d), generator=gen)
+        args = [x] + w
+        outs = []
+        for dev in ("cpu", cuda):
+            on = [a.to(dev) if i == 1 else a.to(dev, dtype)
+                  for i, a in enumerate(args)]
+            torch.cuda.synchronize()
+            with moe.routing_trace() as tr:
+                if dev == cuda:
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    out, aux, z = moe.moe_ff(*on, top_k=k, cap_factor=factor)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            outs.append((out.float().cpu(), tr.calls[0].idx.cpu(),
+                         tr.calls[0].keep.cpu()))
+        (want, ids, keep), (got, card_ids, card_keep) = outs
+        assert torch.equal(ids, card_ids) and torch.equal(keep, card_keep)
+        if s > 1:
+            assert not keep.all()             # the capacity dropped pairs
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.cuda

@@ -1,16 +1,23 @@
 """Port parity, the LM: ``repro_torch.models.lm`` and ``repro_torch.configs``
 against ``repro.models.lm`` and ``repro.configs`` on the CPU.
 
-For each arch of the families the port serves (``dense``, ``vlm``) at
-``reduced()``, the reference's parameters (``init_params`` from a JAX key)
-are carried into the port with ``params_from_reference`` and the same
-seeded numpy batches go through both packages. Logits (forward, prefill,
-decode) are held to JAX's within rtol 1e-4 / atol 1e-5 with argmax equal:
-float32 matmuls, norms and softmax sums in another order, over two layers
-(tied embeddings put logits at ~5x the others' scale). The reference's own
-asserts (teacher forcing at 2e-3, the int8 cache's closeness) run on the
-port as well.
+For each arch of the families the port serves (``dense``, ``vlm``,
+``moe``) at ``reduced()``, the reference's parameters (``init_params`` from
+a JAX key) are carried into the port with ``params_from_reference`` and the
+same seeded numpy batches go through both packages. Logits (forward,
+prefill, decode) are held to JAX's within rtol 1e-4 / atol 1e-5 with argmax
+equal: float32 matmuls, norms and softmax sums in another order, over two
+layers (tied embeddings put logits at ~5x the others' scale). The
+reference's own asserts (teacher forcing at 2e-3, the int8 cache's
+closeness) run on the port as well.
+
+For a MoE arch the reference runs op by op (``jax.disable_jit``) with its
+``moe_ff`` wrapped to record each call's expert ids (:func:`jax_routes`),
+and the port's ids (``moe.routing_trace``) must equal them with no
+forcing; the forward's load-balance and z losses are held as the logits.
+The bf16 MoE cases, which force JAX's ids, are in ``test_torch_moe.py``.
 """
+import contextlib
 import dataclasses
 
 import jax
@@ -24,11 +31,13 @@ from repro.configs import reduced as jreduced
 from repro.models import blocks as jblocks
 from repro.models import lm as jlm
 from repro_torch.configs import ARCH_IDS, get_config, reduced
-from repro_torch.models import blocks, lm
+from repro_torch.models import blocks, lm, moe
 
 LM_ARCHS = ["glm4-9b", "qwen2-7b", "minicpm-2b", "starcoder2-15b",
             "llava-next-mistral-7b"]
-OTHER_ARCHS = [a for a in ARCH_IDS if a not in LM_ARCHS]
+MOE_ARCHS = ["moonshot-v1-16b-a3b", "llama4-maverick-400b-a17b"]
+SERVED_ARCHS = LM_ARCHS + MOE_ARCHS
+OTHER_ARCHS = [a for a in ARCH_IDS if a not in SERVED_ARCHS]
 TOL = dict(rtol=1e-4, atol=1e-5)
 S = 8          # smoke sequence length
 B = 2
@@ -69,6 +78,44 @@ def _j(batch):
 
 def _t(batch):
     return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+@contextlib.contextmanager
+def jax_routes(monkeypatch):
+    """``with jax_routes(monkeypatch) as ids:`` — the reference runs op by
+    op, and each call of its ``moe_ff`` appends its expert ids (G,S,k) to
+    ``ids``: ``jax.lax.top_k`` of the router probabilities, recomputed
+    from the call's own inputs before the original runs. No file of the
+    reference changes."""
+    ids: list = []
+    original = jblocks.moe_ff
+
+    def recording(x, router_w, *args, top_k, **kw):
+        logits = jnp.einsum("gsd,de->gse", x, router_w,
+                            preferred_element_type=jnp.float32)
+        probs = jax.nn.softmax(logits.astype(jnp.float32), axis=-1)
+        ids.append(torch.from_numpy(np.asarray(jax.lax.top_k(probs,
+                                                             top_k)[1])))
+        return original(x, router_w, *args, top_k=top_k, **kw)
+
+    with monkeypatch.context() as m, jax.disable_jit():
+        m.setattr(jblocks, "moe_ff", recording)
+        yield ids
+
+
+@contextlib.contextmanager
+def both_routed(cfg, monkeypatch):
+    """For a MoE ``cfg``: JAX's calls inside record their expert ids and
+    the port's their routing; on leaving, the two lists must be equal,
+    call by call. For the other families nothing is recorded."""
+    if cfg.family != "moe":
+        yield
+        return
+    with jax_routes(monkeypatch) as ids, moe.routing_trace() as tr:
+        yield
+    assert len(tr.calls) == len(ids) > 0
+    for call, want in zip(tr.calls, ids):
+        assert torch.equal(call.idx, want.to(call.idx.dtype))
 
 
 def _close(port, ref, vocab=None):
@@ -126,11 +173,12 @@ def test_param_counts_full_configs():
     assert ms.active_param_count() < 0.25 * ms.param_count()
 
 
-@pytest.mark.parametrize("arch", LM_ARCHS)
+@pytest.mark.parametrize("arch", SERVED_ARCHS)
 def test_param_specs_match_reference_at_full_size(arch):
     """``param_specs`` of the full config: every tensor of the reference's
-    pytree, same path, shape and dtype, on ``meta`` (nothing allocated);
-    glm4-9b has 9,399,767,040 (18,799,534,080 B in bf16)."""
+    pytree, same path, shape and dtype (a MoE router float32 in a bf16
+    model), on ``meta`` (nothing allocated); glm4-9b has 9,399,767,040
+    (18,799,534,080 B in bf16)."""
     cfg = get_config(arch)
     specs = _flat(lm.param_specs(cfg))
     jspecs = _flat(jlm.param_specs(jget_config(arch)))
@@ -146,7 +194,7 @@ def test_param_specs_match_reference_at_full_size(arch):
         assert lm.param_count(lm.param_specs(cfg)) == 9_399_767_040
 
 
-@pytest.mark.parametrize("arch", LM_ARCHS)
+@pytest.mark.parametrize("arch", SERVED_ARCHS)
 def test_init_params_layout_and_seed(arch, arch_state):
     """The port's own init: the reference's layout, shapes and dtypes; the
     same seed (or an equal generator) gives the same tensors; layer norms
@@ -197,19 +245,25 @@ def test_params_carry_bfloat16_bit_for_bit():
 
 
 # -- forward ----------------------------------------------------------------------
-@pytest.mark.parametrize("arch", LM_ARCHS)
-def test_forward_matches_reference(arch, arch_state):
+@pytest.mark.parametrize("arch", SERVED_ARCHS)
+def test_forward_matches_reference(arch, arch_state, monkeypatch):
     """``test_arch_smoke.py``'s forward (shapes, finite, padded vocab
-    masked) on the port, and the logits against JAX's."""
+    masked) on the port, and the logits against JAX's; a MoE arch's
+    expert ids equal, its aux and z losses within the same tolerance."""
     jcfg, cfg, jparams, params = arch_state(arch)
     batch = _batch(cfg, np.random.default_rng(1))
-    logits, (aux, z), caches = lm.forward(cfg, params, _t(batch))
+    with both_routed(cfg, monkeypatch):
+        logits, (aux, z), caches = lm.forward(cfg, params, _t(batch))
+        jlogits, (jaux, jz), _ = jlm.forward(jcfg, jparams, _j(batch))
     assert logits.shape == (B, S, cfg.padded_vocab)
     assert logits.dtype == torch.float32 and caches is None
     assert torch.isfinite(logits[..., :cfg.vocab]).all()
     assert float(logits[..., cfg.vocab:].max()) < -1e29
-    jlogits, _, _ = jlm.forward(jcfg, jparams, _j(batch))
     _close(logits, jlogits, cfg.vocab)
+    np.testing.assert_allclose([float(aux), float(z)],
+                               [float(jaux), float(jz)], **TOL)
+    if cfg.family == "moe":
+        assert float(aux) > 0 and float(z) > 0
 
 
 # -- serving ----------------------------------------------------------------------
@@ -230,32 +284,36 @@ def _prefill_decode(cfg, params, batch, max_len, port):
     return pre_logits, step, int(state["pos"])
 
 
-@pytest.mark.parametrize("arch", LM_ARCHS)
+@pytest.mark.parametrize("arch", SERVED_ARCHS)
 @pytest.mark.parametrize("max_len", [S, 2048])
-def test_prefill_decode_matches_forward(arch, max_len, arch_state):
+def test_prefill_decode_matches_forward(arch, max_len, arch_state,
+                                        monkeypatch):
     """Teacher forcing (``test_arch_smoke.py:77-98``): prefill(t0..t6) +
-    decode(t7) == forward(t0..t7) on the port, and each against JAX's.
-    At max_len 2,048 the prefill's 2,048 cached keys take the flash path
-    (t > kv_chunk = 1,024) in both packages."""
+    decode(t7) == forward(t0..t7) on the port, and each against JAX's
+    (a MoE arch's expert ids equal, call by call). At max_len 2,048 the
+    prefill's 2,048 cached keys take the flash path (t > kv_chunk = 1,024)
+    in both packages."""
     jcfg, cfg, jparams, params = arch_state(arch)
     batch = _batch(cfg, np.random.default_rng(3))
     full, _, _ = lm.forward(cfg, params, _t(batch))
-    pre, step, pos = _prefill_decode(cfg, params, batch, max_len, True)
+    with both_routed(cfg, monkeypatch):
+        pre, step, pos = _prefill_decode(cfg, params, batch, max_len, True)
+        jpre, jstep, jpos = _prefill_decode(jcfg, jparams, batch, max_len,
+                                            False)
     np.testing.assert_allclose(pre.numpy(), full[:, :S - 1].numpy(),
                                rtol=2e-3, atol=2e-3)
     np.testing.assert_allclose(step[:, 0].numpy(), full[:, S - 1].numpy(),
                                rtol=2e-3, atol=2e-3)
     assert pos == S and isinstance(pos, int)
-    jpre, jstep, jpos = _prefill_decode(jcfg, jparams, batch, max_len, False)
     _close(pre, jpre, cfg.vocab)
     _close(step, jstep, cfg.vocab)
     assert jpos == pos
 
 
-@pytest.mark.parametrize("arch", LM_ARCHS)
-def test_multi_step_decode(arch, arch_state):
+@pytest.mark.parametrize("arch", SERVED_ARCHS)
+def test_multi_step_decode(arch, arch_state, monkeypatch):
     """``test_arch_smoke.py:101-111`` on the port, each step's logits and
-    greedy token against JAX's."""
+    greedy token (and a MoE arch's expert ids) against JAX's."""
     jcfg, cfg, jparams, params = arch_state(arch)
     rng = np.random.default_rng(4)
     state = lm.init_serve_state(cfg, B, max_len=S, device="cpu")
@@ -263,8 +321,9 @@ def test_multi_step_decode(arch, arch_state):
     first = rng.integers(0, cfg.vocab, (B, 1)).astype(np.int32)
     tok, jtok = torch.from_numpy(first), jnp.asarray(first)
     for _ in range(4):
-        logits, state = lm.decode_step(cfg, params, state, tok)
-        jlogits, jstate = jlm.decode_step(jcfg, jparams, jstate, jtok)
+        with both_routed(cfg, monkeypatch):
+            logits, state = lm.decode_step(cfg, params, state, tok)
+            jlogits, jstate = jlm.decode_step(jcfg, jparams, jstate, jtok)
         assert logits.shape == (B, 1, cfg.padded_vocab)
         assert torch.isfinite(logits[..., :cfg.vocab]).all()
         _close(logits, jlogits, cfg.vocab)

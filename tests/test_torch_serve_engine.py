@@ -7,6 +7,10 @@ reference's parameters for reduced glm4-9b (``init_params`` from
 ``PRNGKey(0)``) are carried into the port with ``params_from_reference``,
 each scenario runs its own asserts on each package's engine, and the
 port's greedy tokens must equal the JAX engine's, request by request.
+The ghost-slot, solo-against-batch and greedy-against-forward scenarios
+also run on the two MoE archs (:data:`ENGINE_ARCHS`): a MoE layer routes
+each batch row on its own, so a request's tokens do not depend on its
+neighbours.
 
 Temperature sampling draws from each engine's own seeded generator; JAX's
 and torch's streams cannot match (a deliberate difference), so that test
@@ -56,14 +60,28 @@ class _Package:
         return np.asarray(out[0, -1])
 
 
-@pytest.fixture(scope="module")
-def packages():
-    jcfg = jreduced(jget_config("glm4-9b"))
+ENGINE_ARCHS = ["glm4-9b", "moonshot-v1-16b-a3b",
+                "llama4-maverick-400b-a17b"]
+
+
+def _packages(arch):
+    jcfg = jreduced(jget_config(arch))
     jparams = jlm.init_params(jcfg, jax.random.PRNGKey(0))
     params = lm.params_from_reference(jax.tree.map(np.asarray, jparams),
                                       device="cpu")
     return (_Package(False, jcfg, jparams),
-            _Package(True, reduced(get_config("glm4-9b")), params))
+            _Package(True, reduced(get_config(arch)), params))
+
+
+@pytest.fixture(scope="module")
+def packages():
+    return _packages("glm4-9b")
+
+
+@pytest.fixture(scope="module", params=ENGINE_ARCHS)
+def arch_packages(request, packages):
+    return packages if request.param == "glm4-9b" else \
+        _packages(request.param)
 
 
 def _on_both(packages, scenario):
@@ -86,7 +104,7 @@ def _greedy(pkg, prompt, max_new, *, batch_size, max_len=24):
 
 
 # -- tests/test_serve_engine.py ------------------------------------------------------
-def test_ghost_slots_do_not_perturb_real_outputs(packages):
+def test_ghost_slots_do_not_perturb_real_outputs(arch_packages):
     """A partially-filled batch zero-pads the unused slots; the real
     request's greedy decode must be bit-identical to a batch_size=1 run."""
     def scenario(pkg):
@@ -96,10 +114,10 @@ def test_ghost_slots_do_not_perturb_real_outputs(packages):
             got = _greedy(pkg, p, 6, batch_size=b)
             assert got == want, f"ghost slots leaked at batch_size={b}"
         return want
-    _on_both(packages, scenario)
+    _on_both(arch_packages, scenario)
 
 
-def test_two_real_slots_match_their_solo_runs(packages):
+def test_two_real_slots_match_their_solo_runs(arch_packages):
     def scenario(pkg):
         pa, pb = _prompt(pkg.cfg, seed=1), _prompt(pkg.cfg, seed=2)
         want_a = _greedy(pkg, pa, 5, batch_size=1)
@@ -111,7 +129,7 @@ def test_two_real_slots_match_their_solo_runs(packages):
         assert ra.out_tokens == want_a
         assert rb.out_tokens == want_b
         return ra.out_tokens, rb.out_tokens
-    _on_both(packages, scenario)
+    _on_both(arch_packages, scenario)
 
 
 def test_per_request_max_new_tokens(packages):
@@ -222,7 +240,7 @@ def test_engine_batched_requests(packages):
     _on_both(packages, scenario)
 
 
-def test_engine_greedy_matches_forward(packages):
+def test_engine_greedy_matches_forward(arch_packages):
     """Engine greedy decode == argmax over the training forward (teacher
     forcing on its own outputs)."""
     def scenario(pkg):
@@ -237,7 +255,7 @@ def test_engine_greedy_matches_forward(packages):
             assert nxt == req.out_tokens[i], (i, nxt, req.out_tokens)
             seq.append(nxt)
         return req.out_tokens
-    _on_both(packages, scenario)
+    _on_both(arch_packages, scenario)
 
 
 def test_engine_eos_stops_early(packages):
@@ -291,16 +309,21 @@ def test_engine_refuses_parameters_off_its_device(packages):
 
 
 # -- the card-against-CPU check (repro_torch.serve.lm_parity) ---------------------------------
-@pytest.mark.parametrize("cache", ["bfloat16", "int8"])
-def test_lm_parity_check_runs_on_the_cpu(cache):
+@pytest.mark.parametrize("arch,cache", [
+    ("glm4-9b", "bfloat16"), ("glm4-9b", "int8"),
+    ("moonshot-v1-16b-a3b", "bfloat16"),
+    ("llama4-maverick-400b-a17b", "bfloat16")])
+def test_lm_parity_check_runs_on_the_cpu(arch, cache):
     """``check_card_matches_cpu`` with the CPU standing in for the card:
-    every comparison it makes passes, over every logit."""
+    every comparison it makes passes, over every logit; a MoE arch's
+    routing is compared with no flip."""
     from repro_torch.serve import lm_parity
-    cfg = dataclasses.replace(reduced(get_config("glm4-9b")),
+    cfg = dataclasses.replace(reduced(get_config(arch)),
                               kv_cache_dtype=cache)
     line = lm_parity.check_card_matches_cpu(cfg, "cpu", seed=1, max_len=24)
     n = lm_parity.BATCH * (lm_parity.PROMPT + lm_parity.NEW - 1) * cfg.vocab
     assert f" {n} logits within" in line and "one apart" not in line
+    assert (" 0 flips" in line) == (cfg.family == "moe")
 
 
 def test_lm_parity_int8_code_flips():
