@@ -205,7 +205,20 @@ checkout's sources (into build/torch_ext/) and needs one card. Phases:
    reads it), within ``LM_LOGIT_TOL`` at every position and its argmax
    the forward's wherever the forward's top-2 margin exceeds it; the
    unforced replay's routing flips and greedy agreement logged, not
-   gated.
+   gated. Audio: A adds reduced seamless-m4t-large-v2 at max_len 24 over
+   frames from the ported loader (``repro_torch.data.token_batches``), 6
+   frames and then 2,048 (the direct and the flash route of
+   ``_bidir_attention``, in the encoder and in cross-attention), served
+   through ``lm_parity.greedy`` (prefill with the frames, decode on the
+   memory), and once through the engine on an empty memory. Then
+   seamless-m4t-large-v2 at full width and depth (24 encoder + 24 decoder
+   layers, 4,070,100,992 B of bf16 weights drawn from ``--seed``), fed by
+   a ``TokenStore`` over ``synthetic_corpus(1,000,000, 256,206)`` (18
+   bits, 32-bit device words): B1, 8 x 128 tokens over 128 frames, 32
+   new; B2, 4 x 128 tokens over 2,048 frames, 16 new; each prefill held
+   against ``lm.forward`` over exactly the prompts, each replay against
+   the forward at every position, within ``LM_LOGIT_TOL`` and argmax
+   equal past it; prefill and decode timed against their bounds.
 9. report — one JSON line per the kernel table, the nvidia-smi line, and
    last ``{"ok": true, "device": {...}}``.
 
@@ -2759,9 +2772,174 @@ def lm_moe_full_width(lm, get_config, dev, seed: int, smi: str) -> None:
         torch.cuda.empty_cache()
 
 
+# seamless-m4t-large-v2 at full width and depth in bf16: its weights' bytes
+# (the reference's param_specs), the token store's corpus, and the runs B1
+# and B2, each (requests, loader sequence = frames, prompt tokens, new)
+AUDIO_ARCH = "seamless-m4t-large-v2"
+AUDIO_BYTES = 4_070_100_992
+AUDIO_CORPUS = 1_000_000
+AUDIO_RUNS = (("B1", 8, 128, 128, 32), ("B2", 4, 2048, 128, 16))
+
+
+def audio_prefill_flops(cfg, b: int, plen: int, frames: int) -> int:
+    """An audio prefill's operations, 2 per weight per row: the frames'
+    projection and the encoder's blocks over ``frames``, its bidirectional
+    QK^T and PV over frames x frames; the decoder's blocks over the prompt
+    (self-attention, cross-attention's Q and O, the MLP), cross K and V over
+    the frames in every layer, causal self-attention pairs, cross-attention
+    over prompt x frames, and the head."""
+    d, hd = cfg.d_model, cfg.head_dim
+    q_o = 2 * d * cfg.n_heads * hd
+    k_v = 2 * d * cfg.n_kv * hd
+    mlp = (3 if cfg.mlp_style == "swiglu" else 2) * d * cfg.d_ff
+    score = 4 * cfg.n_heads * hd           # QK^T and PV, per query-key pair
+    enc = 2 * cfg.frontend_dim * d * b * frames + cfg.enc_layers * (
+        2 * (q_o + k_v + mlp) * b * frames + score * b * frames * frames)
+    pairs = b * plen * (plen + 1) // 2
+    dec = cfg.n_layers * (2 * (2 * q_o + k_v + mlp) * b * plen +
+                          2 * k_v * b * frames + score * pairs +
+                          score * b * plen * frames)
+    return enc + dec + 2 * d * cfg.padded_vocab * b * plen
+
+
+def audio_full_width(lm, get_config, dev, seed: int, smi: str) -> None:
+    """seamless-m4t-large-v2 at full width and depth in bf16, weights drawn
+    on the card from ``seed``, fed by the columnar token store: a
+    ``TokenStore`` over ``synthetic_corpus`` and ``token_batches``' tokens
+    and frames on the card. B1: 8 x 128 tokens over 128 frames; B2: 4 x
+    128 tokens over 2,048 frames (the flash route for the encoder and for
+    cross-attention). Each: greedy tokens through ``lm_parity.greedy``
+    (prefill with the frames, decode on the memory), the prefill held
+    against ``lm.forward`` over exactly the prompts, teacher forcing
+    against the forward at every position."""
+    from repro_torch.data import TokenStore, synthetic_corpus, token_batches
+    from repro_torch.serve import lm_parity
+    cfg = get_config(AUDIO_ARCH)
+    t0 = time.perf_counter()
+    store = TokenStore(synthetic_corpus(AUDIO_CORPUS, cfg.vocab, seed),
+                       cfg.vocab, device_unpack=True)
+    log(f"{AUDIO_ARCH}'s token store: {store.n} tokens of "
+        f"synthetic_corpus, vocab {cfg.vocab}, {store.bits} bits, device "
+        f"words of {store.device_bits} bits: {store.packed_nbytes} B packed,"
+        f" {store.raw_nbytes} B as int32 ids, unigram entropy "
+        f"{store.entropy_bits():.6f} bits; built in "
+        f"{time.perf_counter() - t0:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    weights = lm_bytes(params)
+    read = lm_bytes(params["blocks"]) + lm_bytes(params["head"]) + \
+        lm_bytes(params["final_norm"])
+    log(f"{AUDIO_ARCH}: {lm.param_count(params)} parameters, {weights} B "
+        f"of bf16 weights drawn on the card in "
+        f"{time.perf_counter() - t0:.3f} s ({cfg.enc_layers} encoder + "
+        f"{cfg.n_layers} decoder layers, d_model {cfg.d_model})")
+    if weights != AUDIO_BYTES:
+        fail(f"{AUDIO_ARCH}: {weights} B of weights, not {AUDIO_BYTES}")
+    for k, (name, b, frames, plen, new) in enumerate(AUDIO_RUNS):
+        batch = next(token_batches(store, cfg, batch=b, seq=frames,
+                                   seed=seed + k, device=dev))
+        prompts = batch["tokens"][:, :plen].cpu().numpy()
+        fr = batch["frames"]
+        max_len = plen + new
+        what = f"{AUDIO_ARCH} {name} ({b} x {plen} tokens over {frames} " \
+            f"frames)"
+        if fr.shape != (b, frames, cfg.frontend_dim) or not fr.is_cuda:
+            fail(f"{what}: the loader's frames are {tuple(fr.shape)} on "
+                 f"{fr.device}")
+        # warm-up at the run's shapes, two tokens, not timed
+        lm_parity.greedy(cfg, params, prompts, 2, max_len, dev, fr)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = lm_parity.greedy(cfg, params, prompts, new, max_len, dev, fr)
+        wall = time.perf_counter() - t0
+        if outs.shape != (b, new) or outs.min() < 0 or \
+                outs.max() >= cfg.vocab:
+            fail(f"{what}: served {outs.shape} tokens, not ({b}, {new}) ids "
+                 f"in [0, {cfg.vocab})")
+        seq = np.concatenate([prompts, outs], axis=1)
+        s = seq.shape[1] - 1
+        serve, state, prefill_s, steps = lm_parity.replay(
+            cfg, params, seq, plen, max_len, dev, timed=True, frames=fr)
+        launches = count_launches(lambda: lm.decode_step(
+            cfg, params, state, torch.from_numpy(seq[:, -1:]).to(dev)))
+        del state
+        pre_fwd, _, _ = lm.forward(cfg, params, {
+            "tokens": torch.from_numpy(prompts).to(dev), "frames": fr})
+        pre_fwd = pre_fwd[..., :cfg.vocab]
+        pre_err = float((serve[:, :plen] - pre_fwd).abs().max())
+        finite = bool(torch.isfinite(pre_fwd).all())
+        del pre_fwd
+        fwd, _, _ = lm.forward(cfg, params, {
+            "tokens": torch.from_numpy(seq[:, :s]).to(dev), "frames": fr})
+        fwd = fwd[..., :cfg.vocab]
+        finite &= bool(torch.isfinite(serve).all() and
+                       torch.isfinite(fwd).all())
+        diff = (serve - fwd).abs()
+        err, mean_err = float(diff.max()), float(diff.mean())
+        del diff
+        top2 = fwd.topk(2, dim=-1)
+        clear = top2.values[..., 0] - top2.values[..., 1] > LM_LOGIT_TOL
+        same = serve.argmax(dim=-1) == top2.indices[..., 0]
+        n_clear, agree = int(clear.sum()), int((same & clear).sum())
+        del serve, fwd, top2, same
+        ops = audio_prefill_flops(cfg, b, plen, frames)
+        prefill_b = max(weights / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S)
+        recompute = cfg.n_layers * 2 * 2 * b * frames * cfg.d_model * \
+            cfg.n_kv * cfg.head_dim
+        step_b = max(read / HBM_BYTES_PER_S, recompute / BF16_OPS_PER_S)
+        step_s = float(np.median(steps))
+        log(f"{what}, {new} new tokens, max_len {max_len}, encoder and "
+            f"cross-attention on the {'flash' if frames > 1024 else 'direct'}"
+            f" route:")
+        log(f"  served: {b * new} new tokens in {wall:.6f} s = "
+            f"{b * new / wall:.3f} tok/s end to end (prefill with the "
+            f"frames, then greedy decode on the memory)")
+        log(f"  prefill: {b * plen} tokens over {b * frames} frames in "
+            f"{prefill_s * 1e3:.6f} ms = {b * plen / prefill_s:.1f} tok/s; "
+            f"bound {prefill_b * 1e3:.6f} ms ({ops} bf16 ops of the encoder"
+            f" and decoder products and attention at 989 TFLOP/s), "
+            f"{prefill_b / prefill_s:.4f} of it")
+        log(f"  decode: median {step_s * 1e3:.6f} ms/step (min "
+            f"{min(steps) * 1e3:.6f}, max {max(steps) * 1e3:.6f}, "
+            f"{len(steps)} steps) = {b / step_s:.1f} tok/s; bound "
+            f"{step_b * 1e3:.6f} ms (max of {read} B of decoder, head and "
+            f"final norm at 3.35 TB/s and {recompute} ops of the cross K/V "
+            f"recompute at 989 TFLOP/s), {step_b / step_s:.4f} of it; one "
+            f"step: {launches}")
+        log(f"  prefill vs the forward over exactly the prompts: max |d| "
+            f"{pre_err:.6f}; teacher forcing vs the forward: max |d| "
+            f"{err:.6f} over all {b * s} positions (tolerance "
+            f"{LM_LOGIT_TOL}), mean |d| {mean_err:.3e}; argmax equal to the"
+            f" forward's at {agree} of {n_clear} positions whose top-2 "
+            f"margin exceeds {LM_LOGIT_TOL}")
+        log(f"  card: {smi}")
+        if not finite:
+            fail(f"{what}: non-finite logits")
+        if pre_err > LM_LOGIT_TOL:
+            fail(f"{what}: prefill logits differ from the forward's over "
+                 f"the prompts by {pre_err} > {LM_LOGIT_TOL}")
+        if err > LM_LOGIT_TOL:
+            fail(f"{what}: serve logits differ from the forward's by {err} "
+                 f"> {LM_LOGIT_TOL}")
+        if agree != n_clear:
+            fail(f"{what}: {n_clear - agree} argmaxes differ from the "
+                 "forward's past the tolerance")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"max_memory_allocated: {peak} B ({weights} B of weights)")
+    if peak < weights:
+        fail(f"{AUDIO_ARCH}: {peak} B allocated at peak, {weights} B of "
+             "weights; the model was not resident")
+    del params
+    torch.cuda.empty_cache()
+
+
 def lm_path(lm, configs, Request, ServeEngine, dev, seed: int,
             smi: str) -> None:
-    """Phase 8: the LM serving path (families dense, vlm and moe)."""
+    """Phase 8: the LM serving path (families dense, vlm, moe and
+    audio)."""
+    from repro_torch.data import TokenStore, synthetic_corpus, token_batches
     from repro_torch.serve import lm_parity
     log("LM parity at reduced width, float32, the engine on the card "
         "against the CPU (repro_torch.serve.lm_parity):")
@@ -2771,15 +2949,28 @@ def lm_path(lm, configs, Request, ServeEngine, dev, seed: int,
               (glm, 2048)]
     cases += [(configs.reduced(configs.get_config(a)), n)
               for a, *_ in MOE_MODELS for n in (24, 2048)]
-    for cfg, max_len in cases:
+    cases = [(cfg, max_len, None) for cfg, max_len in cases]
+    # reduced seamless: over the loader's frames, enc_len the prompt's
+    # length (both of _bidir_attention's routes direct), over 2,048 frames
+    # (both flash), and through the engine on an empty memory
+    audio = configs.reduced(configs.get_config(AUDIO_ARCH))
+    store = TokenStore(synthetic_corpus(10_000, audio.vocab, seed),
+                       audio.vocab)
+    for frames in (lm_parity.PROMPT, 2048):
+        fr = next(token_batches(store, audio, batch=lm_parity.BATCH,
+                                seq=frames, seed=seed, device="cpu"))
+        cases.append((audio, 24, fr["frames"].numpy()))
+    cases.append((audio, 24, None))
+    for cfg, max_len, frames in cases:
         try:
             log("  " + lm_parity.check_card_matches_cpu(
-                cfg, dev, seed=seed, max_len=max_len))
+                cfg, dev, seed=seed, max_len=max_len, frames=frames))
         except AssertionError as e:
             fail(f"LM parity: {e}")
     lm_full_width(lm, configs.get_config, Request, ServeEngine, dev, seed,
                   smi)
     lm_moe_full_width(lm, configs.get_config, dev, seed, smi)
+    audio_full_width(lm, configs.get_config, dev, seed, smi)
 
 
 def main() -> None:
@@ -3118,7 +3309,7 @@ def main() -> None:
     launches.update(table6)
     log(f"phase 7 (Table 6) wall: {time.perf_counter() - phase_t0:.3f} s")
 
-    # -- 8. LM serving (families dense, vlm and moe) ----------------------------------
+    # -- 8. LM serving (families dense, vlm, moe and audio) --------------------------
     phase_t0 = time.perf_counter()
     if torch.backends.cuda.matmul.allow_tf32:
         fail("TF32 matmuls are on: the LM's float32 parity needs full float32")

@@ -1,5 +1,7 @@
-"""Block definitions + initializers, the ``dense`` kind (families ``dense``
-and ``vlm``) and the ``moe`` kind (family ``moe``).
+"""Block definitions + initializers: the ``dense`` kind (families ``dense``
+and ``vlm``), the ``moe`` kind (family ``moe``), and the audio family's
+``enc`` (a bidirectional dense block) and ``xdec`` (a decoder block with
+cross-attention over the encoder's output, ``memory``).
 
 Layers are organized as a repeating *pattern* of block kinds (e.g. llama4:
 ``['dense', 'moe']`` x 24 groups; xLSTM: ``['mlstm']*7 + ['slstm']`` x 6).
@@ -13,11 +15,11 @@ Each kind implements:
   apply_<kind>(cfg, p, meta, x, *, cache, pos, ctx) -> (x, cache, aux)
 
 ``ctx`` is the forward's :class:`StepContext`: what every layer shares.
+``xdec`` also takes ``memory``.
 
-``dense`` and ``moe`` are ported. The other kinds (``mlstm``, ``slstm``,
-``hymba``, ``xdec``, ``enc``) and cross-attention come with ROADMAP.md
-Queue 1 items 5(b)-(c); ``block_pattern`` and ``n_groups`` are whole,
-because ``configs.reduced`` reads them for every arch.
+The recurrent kinds (``mlstm``, ``slstm``, ``hymba``) come with ROADMAP.md
+Queue 1 item 5(b); ``block_pattern`` and ``n_groups`` are whole, because
+``configs.reduced`` reads them for every arch.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from repro_torch.models import moe
 from repro_torch.models.attention import (attention, attention_mask,
                                           is_direct)
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.flash import flash_attention
 
 
 # =====================================================================
@@ -122,27 +125,36 @@ def _write_cache(buf: torch.Tensor, new: torch.Tensor, pos: int) -> None:
 
 
 def _attn_apply(cfg: ModelConfig, p, x, *, cache, pos: int, window,
-                ctx: StepContext):
+                ctx: StepContext, causal: bool = True, rope: bool = True,
+                kv_src: torch.Tensor | None = None):
     """x (B,S,D). cache: None or one group's dict(k, v) of (B,T,KV,hd)
-    views (plus ks, vs for the int8 cache), updated in place."""
+    views (plus ks, vs for the int8 cache), updated in place. ``kv_src``
+    (cross-attention's memory, (B,T,D)): K and V come from it on every
+    call, unrotated, and no cache is written. ``rope=False`` leaves Q and
+    K unrotated; ``causal=False`` attends to every key through
+    :func:`_bidir_attention` (``ctx``'s causal mask is not read)."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     q = x @ p["wq"]
     if "bq" in p:
         q = q + p["bq"]
     q = q.reshape(b, s, cfg.n_heads, hd)
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    src = x if kv_src is None else kv_src
+    k = src @ p["wk"]
+    v = src @ p["wv"]
     if "bk" in p:
         k, v = k + p["bk"], v + p["bv"]
     kvh = k.shape[-1] // hd
-    k = k.reshape(b, -1, kvh, hd)
-    v = v.reshape(b, -1, kvh, hd)
-    q = L.rotate(q, ctx.cos, ctx.sin)
-    k = L.rotate(k, ctx.cos, ctx.sin)
+    # T spelled out: an empty memory (T = 0) has no -1 to infer
+    k = k.reshape(b, src.shape[1], kvh, hd)
+    v = v.reshape(b, src.shape[1], kvh, hd)
+    if rope:
+        q = L.rotate(q, ctx.cos, ctx.sin)
+        if kv_src is None:
+            k = L.rotate(k, ctx.cos, ctx.sin)
 
     kv_len = None
-    if cache is not None:
+    if cache is not None and kv_src is None:
         if "ks" in cache:        # int8 dictionary-quantized cache
             kq, ks_new = _kv_quantize(k)
             vq, vs_new = _kv_quantize(v)
@@ -156,9 +168,35 @@ def _attn_apply(cfg: ModelConfig, p, x, *, cache, pos: int, window,
             _write_cache(cache["v"], v, pos)
             k, v = cache["k"], cache["v"]
         kv_len = pos + s
-    out = attention(q, k, v, q_offset=pos, window=window, kv_len=kv_len,
-                    mask=ctx.mask(window))
+    if causal:
+        out = attention(q, k, v, q_offset=pos, window=window, kv_len=kv_len,
+                        mask=ctx.mask(window))
+    else:
+        out = _bidir_attention(q, k, v)
     return out.reshape(b, s, cfg.n_heads * hd) @ p["wo"], cache
+
+
+def _bidir_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kv_chunk: int = 1024) -> torch.Tensor:
+    """Non-causal GQA attention, the reference's rule for its two routes
+    (not :func:`attention.is_direct`'s). T past ``kv_chunk`` and a multiple
+    of it goes through flash with every query position pinned to T, so the
+    causal predicate keeps every key (decode over 2,048 frames too);
+    otherwise the direct route, float32 scores with no mask at all (T =
+    1,500 too). T = 0 gives zeros. q (B,S,H,dh), k, v (B,T,KV,dh)."""
+    b, s, h, dh = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, s, kv, h // kv, dh) * (dh ** -0.5)
+    if t > kv_chunk and t % kv_chunk == 0:
+        q_pos = torch.full((s,), float(t), dtype=torch.float32,
+                           device=q.device)
+        kbias = torch.zeros((t,), dtype=torch.float32, device=q.device)
+        out = flash_attention(qg, k, v, q_pos, kbias, 0.0, kv_chunk)
+        return out.reshape(b, s, h, dh)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float())
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(b, s, h, dh)
 
 
 def _kv_quantize(x: torch.Tensor):
@@ -207,11 +245,11 @@ def init_dense(cfg: ModelConfig, generator, n: int, device):
 
 
 def apply_dense(cfg: ModelConfig, p, meta, x, *, cache, pos: int,
-                ctx: StepContext):
+                ctx: StepContext, causal: bool = True):
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     window = meta.get("window", cfg.sliding_window or 0)
     attn_out, cache = _attn_apply(cfg, p["attn"], h, cache=cache, pos=pos,
-                                  window=window, ctx=ctx)
+                                  window=window, ctx=ctx, causal=causal)
     x = x + attn_out
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     x = x + _mlp_apply(p["mlp"], h)
@@ -257,5 +295,53 @@ def apply_moe(cfg: ModelConfig, p, meta, x, *, cache, pos: int,
     return x, cache, (aux, z)
 
 
-INIT = {"dense": init_dense, "moe": init_moe}
-APPLY = {"dense": apply_dense, "moe": apply_moe}
+# =====================================================================
+# encoder block + enc-dec decoder block (audio)
+# =====================================================================
+def init_enc(cfg: ModelConfig, generator, n: int, device):
+    return init_dense(cfg, generator, n, device)
+
+
+def apply_enc(cfg: ModelConfig, p, meta, x, *, cache=None, pos: int = 0,
+              ctx: StepContext):
+    """Bidirectional, with no cache; ``ctx`` is the encoder's own (RoPE
+    from position 0 over the frames)."""
+    return apply_dense(cfg, p, meta, x, cache=None, pos=pos, ctx=ctx,
+                       causal=False)
+
+
+def init_xdec(cfg: ModelConfig, generator, n: int, device):
+    dt = L.dtype_of(cfg.dtype)
+    return {"ln1": torch.ones((n, cfg.d_model), dtype=dt, device=device),
+            "ln_x": torch.ones((n, cfg.d_model), dtype=dt, device=device),
+            "ln2": torch.ones((n, cfg.d_model), dtype=dt, device=device),
+            "attn": _attn_init(cfg, generator, n, dt, device),
+            "xattn": _attn_init(cfg, generator, n, dt, device),
+            "mlp": _mlp_init(cfg, generator, n, dt, device)}
+
+
+def apply_xdec(cfg: ModelConfig, p, meta, x, *, cache, pos: int,
+               ctx: StepContext, memory=None):
+    """Causal self-attention (its cache is ``{"self": K/V}``), then
+    cross-attention over ``memory`` (B,T,D), unrotated and bidirectional:
+    its K and V are recomputed from the memory at every call, as the
+    reference does, then the MLP."""
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    attn_out, _ = _attn_apply(cfg, p["attn"], h,
+                              cache=None if cache is None else cache["self"],
+                              pos=pos, window=0, ctx=ctx)
+    x = x + attn_out
+    h = L.rms_norm(x, p["ln_x"], cfg.norm_eps)
+    xattn_out, _ = _attn_apply(cfg, p["xattn"], h, cache=None, pos=pos,
+                               window=0, ctx=ctx, causal=False, rope=False,
+                               kv_src=memory)
+    x = x + xattn_out
+    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    x = x + _mlp_apply(p["mlp"], h)
+    return x, cache, (0.0, 0.0)
+
+
+INIT = {"dense": init_dense, "moe": init_moe, "enc": init_enc,
+        "xdec": init_xdec}
+APPLY = {"dense": apply_dense, "moe": apply_moe, "enc": apply_enc,
+         "xdec": apply_xdec}

@@ -6,14 +6,16 @@ Public surface:
   param_specs(cfg)                              the same on ``meta`` (no memory)
   params_from_reference(params, device)         the reference's pytree -> tensors
   forward(cfg, params, batch, caches)           logits, aux, new_caches
-  init_serve_state(cfg, B, max_len, device)     zeroed caches
+  init_serve_state(cfg, B, max_len, device, enc_len=0)  zeroed caches
   prefill / decode_step(cfg, params, state, ..) serve steps
 
-Families ``dense``, ``vlm`` and ``moe``; the others raise
-``NotImplementedError`` naming the ROADMAP.md item that ports them. A MoE
-layer's load-balance and z losses are summed over the stack, as the
-reference sums them. Training (``train_loss``, ``chunked_ce``, the flash
-backward) comes with the training slice.
+Families ``dense``, ``vlm``, ``moe`` and ``audio`` (an encoder over the
+batch's ``frames``, whose output, ``memory``, the decoder's
+cross-attention reads; a serve state keeps it after prefill); ``ssm`` and
+``hybrid`` raise ``NotImplementedError`` naming the ROADMAP.md item that
+ports them. A MoE layer's load-balance and z losses are summed over the
+stack, as the reference sums them. Training (``train_loss``,
+``chunked_ce``, the flash backward) comes with the training slice.
 """
 from __future__ import annotations
 
@@ -30,8 +32,7 @@ from repro_torch.models.config import ModelConfig
 NEG_INF = -1e30
 
 _NOT_PORTED = {"ssm": "5(b), ssm/hybrid serving",
-               "hybrid": "5(b), ssm/hybrid serving",
-               "audio": "5(c), the audio encoder-decoder"}
+               "hybrid": "5(b), ssm/hybrid serving"}
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -94,6 +95,12 @@ def init_params(cfg: ModelConfig, generator_or_seed, device=None) -> dict:
     if cfg.family == "vlm":
         params["vis_proj"] = L.dense_init(gen, (cfg.frontend_dim,
                                                 cfg.d_model), dt, device)
+    if cfg.family == "audio":
+        params["enc_proj"] = L.dense_init(gen, (cfg.frontend_dim,
+                                                cfg.d_model), dt, device)
+        params["enc_blocks"] = INIT["enc"](cfg, gen, cfg.enc_layers, device)
+        params["enc_norm"] = torch.ones((cfg.d_model,), dtype=dt,
+                                        device=device)
     return params
 
 
@@ -163,24 +170,32 @@ def _unstack(tree, g: int) -> list:
 
 
 def run_stack(cfg: ModelConfig, params_blocks, metas, x, *, caches=None,
-              pos: int = 0):
-    """-> (x, aux, z, caches). The caches are updated in place: the
-    returned ones are the stacked tensors passed in."""
-    pat = block_pattern(cfg)
-    g = n_groups(cfg)
+              pos: int = 0, memory=None, pattern=None):
+    """-> (x, aux, z, caches). ``pattern`` is the config's decoder pattern
+    unless given (the encoder passes ``["enc"]``); the group count is the
+    stacked parameters' leading dimension. ``memory`` goes to each
+    ``xdec`` block. The caches are updated in place: the returned ones are
+    the stacked tensors passed in."""
+    pat = block_pattern(cfg) if pattern is None else pattern
+    g = pytree.tree_leaves(params_blocks[0])[0].shape[0]
     gp = [_unstack(p, g) for p in params_blocks]
     gc = [_unstack(c, g) for c in caches] if caches is not None else None
     s = x.shape[1]
-    t = caches[0]["k"].shape[2] if caches is not None else s
+    if caches is None:
+        t = s
+    else:                     # an xdec cache nests its K/V under "self"
+        t = caches[0].get("self", caches[0])["k"].shape[2]
     ctx = StepContext(cfg, s, t, pos, None if caches is None else pos + s,
                       x.device)
     aux = z = 0.0
     for gi in range(g):
         for j, kind in enumerate(pat):
             meta = {k: v[gi] for k, v in metas[j].items()}
+            kw = {"memory": memory} if kind == "xdec" else {}
             x, _, (a, zz) = APPLY[kind](
                 cfg, gp[j][gi], meta, x,
-                cache=None if gc is None else gc[j][gi], pos=pos, ctx=ctx)
+                cache=None if gc is None else gc[j][gi], pos=pos, ctx=ctx,
+                **kw)
             aux = aux + a
             z = z + zz
     return x, aux, z, caches
@@ -190,8 +205,9 @@ def run_stack(cfg: ModelConfig, params_blocks, metas, x, *, caches=None,
 # forward
 # =====================================================================
 def _hidden(cfg: ModelConfig, params, batch, caches):
-    """Shared trunk: embeddings + the vision projection + block stack +
-    final norm. Returns (x_final, (aux, z), new_caches)."""
+    """Shared trunk: embeddings + frontends (the vision projection, the
+    audio encoder) + block stack + final norm. Returns (x_final, (aux, z),
+    new_caches)."""
     _check_family(cfg)
     tokens = batch["tokens"]
     pos = caches["pos"] if caches is not None else 0
@@ -199,11 +215,21 @@ def _hidden(cfg: ModelConfig, params, batch, caches):
     if cfg.family == "vlm" and "patch_embeds" in batch:
         pp = batch["patch_embeds"].to(x.dtype) @ params["vis_proj"]
         x = torch.cat([pp, x[:, pp.shape[1]:, :]], dim=1)
+    memory = None
+    if cfg.family == "audio":
+        if caches is not None and "memory" in caches and \
+                "frames" not in batch:
+            memory = caches["memory"]
+        else:                 # encode: RoPE from 0 over the frames, no cache
+            fr = batch["frames"].to(x.dtype) @ params["enc_proj"]
+            memory, _, _, _ = run_stack(cfg, [params["enc_blocks"]], [{}],
+                                        fr, pattern=["enc"])
+            memory = L.rms_norm(memory, params["enc_norm"], cfg.norm_eps)
 
     block_caches = caches["blocks"] if caches is not None else None
     x, aux, z, new_block_caches = run_stack(
         cfg, params["blocks"], build_meta(cfg), x, caches=block_caches,
-        pos=pos)
+        pos=pos, memory=memory)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
     new_caches = None
@@ -211,12 +237,16 @@ def _hidden(cfg: ModelConfig, params, batch, caches):
         new_caches = dict(caches)
         new_caches["blocks"] = new_block_caches
         new_caches["pos"] = pos + tokens.shape[1]
+        if memory is not None:
+            new_caches["memory"] = memory
     return x, (aux, z), new_caches
 
 
 def forward(cfg: ModelConfig, params, batch, caches=None):
     """batch: dict with 'tokens' (B,S) int; vlm: + 'patch_embeds'
-    (B,P,frontend_dim). caches: serve-state dict or None.
+    (B,P,frontend_dim); audio: + 'frames' (B,S_enc,frontend_dim), which a
+    serve state's ``memory`` stands in for once it holds the encoder's
+    output. caches: serve-state dict or None.
     Returns (logits (B,S,padded_vocab) float32, (aux, z), new_caches)."""
     x, (aux, z), new_caches = _hidden(cfg, params, batch, caches)
     head = params.get("head")
@@ -255,17 +285,25 @@ def _zero_attn_cache(cfg: ModelConfig, g: int, b: int, max_len: int, dt,
 
 
 def init_serve_state(cfg: ModelConfig, batch_size: int, max_len: int,
-                     device=None) -> dict:
+                     device=None, *, enc_len: int = 0) -> dict:
     """Zeroed caches on ``device`` (``cuda`` unless named): attention K/V
-    for each ``dense`` and ``moe`` position of the pattern; ``pos`` is a
-    host int."""
+    for each ``dense`` and ``moe`` position of the pattern, self-attention
+    K/V under ``"self"`` for ``xdec``; the audio family also holds
+    ``memory``, (B, enc_len, D) zeros in the model's dtype (a prefill with
+    frames replaces it). ``pos`` is a host int."""
     device = resolve_device(device)
     _check_family(cfg)
     dt = L.dtype_of(cfg.dtype)
     g = n_groups(cfg)
-    caches = [_zero_attn_cache(cfg, g, batch_size, max_len, dt, device)
-              for _ in block_pattern(cfg)]
-    return {"blocks": caches, "pos": 0}
+    caches = []
+    for kind in block_pattern(cfg):
+        kv = _zero_attn_cache(cfg, g, batch_size, max_len, dt, device)
+        caches.append({"self": kv} if kind == "xdec" else kv)
+    state = {"blocks": caches, "pos": 0}
+    if cfg.family == "audio":
+        state["memory"] = torch.zeros((batch_size, enc_len, cfg.d_model),
+                                      dtype=dt, device=device)
+    return state
 
 
 def prefill(cfg: ModelConfig, params, state, batch):

@@ -6,7 +6,9 @@ into slots (ghost slots hold zeros), prefilled together, and decoded step
 by step with per-slot stop tracking. Sampling is greedy (the first
 maximum) or temperature-based, from the engine's own seeded generator on
 the parameters' device. The caches come from
-:func:`repro_torch.models.lm.init_serve_state`.
+:func:`repro_torch.models.lm.init_serve_state`. Requests carry no frames,
+as the reference's do not: an audio model's cross-attention reads the
+state's empty memory (``enc_len`` 0).
 """
 from __future__ import annotations
 

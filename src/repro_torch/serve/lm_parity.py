@@ -26,6 +26,11 @@ exception is a decision whose top-k margin on the CPU is under
 position of each sequence before its first such flip, or before the call
 that held it when that call dropped pairs of the sequence at its capacity
 (the slots of the others follow the flip). Greedy tokens stay equal.
+
+The audio family serves with the encoder's ``frames`` through
+:func:`greedy` (prefill with them, then decode on the memory), since the
+engine takes no frames, as the reference's does not; without frames it
+goes through the engine, whose cross-attention reads an empty memory.
 """
 from __future__ import annotations
 
@@ -46,20 +51,33 @@ ROUTE_MARGIN = 1e-5            # the CPU's top-k margin under which they may
 PROMPT, NEW, BATCH = 6, 8, 3
 
 
+def _prefill_batch(tokens: torch.Tensor, device, patches=None,
+                   frames=None) -> dict:
+    """The prefill's batch: ``tokens`` with a vlm's patches or the audio
+    encoder's frames (numpy arrays or tensors), on ``device``."""
+    batch = {"tokens": tokens}
+    for name, a in (("patch_embeds", patches), ("frames", frames)):
+        if a is not None:
+            batch[name] = torch.as_tensor(a).to(device)
+    return batch
+
+
 def replay(cfg, params, seq: np.ndarray, plen: int, max_len: int, device,
-           patches: np.ndarray | None = None, timed: bool = False):
-    """Teacher forcing through the serve path: prefill ``seq[:, :plen]``,
-    then decode ``seq[:, i]`` for each i in [plen, S - 1). Returns the
-    logits (B, S - 1, vocab) float32, the state, the prefill's seconds and
-    each decode step's (host clock, synchronised when ``timed``)."""
+           patches: np.ndarray | None = None, timed: bool = False,
+           frames=None):
+    """Teacher forcing through the serve path: prefill ``seq[:, :plen]``
+    (with the vlm's ``patches`` or the audio encoder's ``frames``), then
+    decode ``seq[:, i]`` for each i in [plen, S - 1). Returns the logits
+    (B, S - 1, vocab) float32, the state, the prefill's seconds and each
+    decode step's (host clock, synchronised when ``timed``)."""
     device = torch.device(device)
     sync = torch.cuda.synchronize if timed and device.type == "cuda" else \
         (lambda: None)
     tokens = torch.from_numpy(seq).to(device)
-    state = lm.init_serve_state(cfg, seq.shape[0], max_len, device=device)
-    batch = {"tokens": tokens[:, :plen]}
-    if patches is not None:
-        batch["patch_embeds"] = torch.from_numpy(patches).to(device)
+    state = lm.init_serve_state(
+        cfg, seq.shape[0], max_len, device=device,
+        enc_len=0 if frames is None else frames.shape[1])
+    batch = _prefill_batch(tokens[:, :plen], device, patches, frames)
     sync()
     t0 = time.perf_counter()
     logits, state = lm.prefill(cfg, params, state, batch)
@@ -74,6 +92,27 @@ def replay(cfg, params, seq: np.ndarray, plen: int, max_len: int, device,
         steps.append(time.perf_counter() - t0)
         out.append(logits[..., :cfg.vocab])
     return torch.cat(out, dim=1), state, prefill_s, steps
+
+
+def greedy(cfg, params, prompts: np.ndarray, new: int, max_len: int, device,
+           frames=None) -> np.ndarray:
+    """Greedy tokens (B, new): ``lm.prefill`` of ``prompts`` with the audio
+    encoder's ``frames``, then ``lm.decode_step`` on the memory, the first
+    maximum each step, as the engine samples."""
+    device = torch.device(device)
+    state = lm.init_serve_state(
+        cfg, prompts.shape[0], max_len, device=device,
+        enc_len=0 if frames is None else frames.shape[1])
+    batch = _prefill_batch(torch.from_numpy(prompts).to(device), device,
+                           frames=frames)
+    logits, state = lm.prefill(cfg, params, state, batch)
+    toks = []
+    for i in range(new):
+        tok = torch.argmax(logits[:, -1:, :cfg.vocab], dim=-1).to(torch.int32)
+        toks.append(tok)
+        if i + 1 < new:
+            logits, state = lm.decode_step(cfg, params, state, tok)
+    return torch.cat(toks, dim=1).cpu().numpy()
 
 
 def _code_flips(card_state, cpu_state, s: int):
@@ -162,14 +201,17 @@ def route_flips(cpu: list[dict], card: list[dict], spans) -> tuple:
     return flips, first
 
 
-def check_card_matches_cpu(cfg, device=None, *, seed: int,
-                           max_len: int) -> str:
+def check_card_matches_cpu(cfg, device=None, *, seed: int, max_len: int,
+                           frames: np.ndarray | None = None) -> str:
     """One reduced float32 config: the port's seeded init on the CPU, copied
     to ``device`` (``cuda`` unless named); the engine on the card against
     the same engine on the CPU (greedy tokens equal), then teacher-forced
     prefill and decode logits over those tokens, a MoE model's expert ids
-    under :func:`route_flips`. Raises ``AssertionError`` on a difference;
-    returns a line that says what was compared."""
+    under :func:`route_flips`. An audio model with ``frames`` (BATCH,
+    enc_len, frontend_dim) serves through :func:`greedy` and replays with
+    them; without, through the engine on an empty memory. Raises
+    ``AssertionError`` on a difference; returns a line that says what was
+    compared."""
     device = resolve_device(device)
     cpu = torch.device("cpu")
     params = lm.init_params(cfg, seed, device=cpu)
@@ -182,21 +224,28 @@ def check_card_matches_cpu(cfg, device=None, *, seed: int,
             (BATCH, cfg.n_patches, cfg.frontend_dim)).astype(np.float32)
     toks = []
     for d, p in ((cpu, params), (device, on_card)):
+        if frames is not None:
+            toks.append(greedy(cfg, p, prompts, NEW, max_len, d,
+                               frames).tolist())
+            continue
         eng = ServeEngine(cfg, p, batch_size=BATCH + 1, max_len=max_len,
                           device=d)
         toks.append([r.out_tokens for r in eng.run_batch(
             [Request(prompt=q, max_new_tokens=NEW) for q in prompts])])
     what = (f"{cfg.name} max_len {max_len} cache {cfg.kv_cache_dtype}")
+    if cfg.family == "audio":
+        what += (f" over {frames.shape[1]} frames" if frames is not None
+                 else " on an empty memory (the engine)")
     if toks[0] != toks[1]:
         raise AssertionError(f"{what}: greedy tokens on the card {toks[1]} "
                              f"differ from the CPU's {toks[0]}")
     seq = np.concatenate([prompts, np.asarray(toks[0], np.int32)], axis=1)
     with moe.routing_trace() as cpu_tr:
         cpu_l, cpu_s, _, _ = replay(cfg, params, seq, PROMPT, max_len, cpu,
-                                    patches)
+                                    patches, frames=frames)
     with moe.routing_trace() as card_tr:
         card_l, card_s, _, _ = replay(cfg, on_card, seq, PROMPT, max_len,
-                                      device, patches)
+                                      device, patches, frames=frames)
     card_l = card_l.cpu()
     s = cpu_l.shape[1]
     flips, first = 0, torch.full((BATCH,), s)

@@ -47,8 +47,10 @@ def test_guard_walks_every_port_package():
     packages = {p.name for p in (ROOT / "src" / "repro_torch").iterdir()
                 if (p / "__init__.py").exists()}
     assert packages <= walked
-    assert {"columnar", "configs", "core", "distributed", "kernels",
+    assert {"columnar", "configs", "core", "data", "distributed", "kernels",
             "launch", "models", "serve"} <= packages
+    assert ROOT / "src" / "repro_torch" / "data" / "tokenstore.py" \
+        in PORT_FILES
     assert ROOT / "src" / "repro_torch" / "distributed" / "sharding.py" \
         in PORT_FILES
 
@@ -100,6 +102,25 @@ def test_lm_entry_points_default_to_cuda(monkeypatch):
                  lambda: lm.init_serve_state(cfg, 1, 8),
                  lambda: ServeEngine(cfg, params, batch_size=1, max_len=8),
                  lambda: launch_serve.main(["--preset", "smoke"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+
+
+def test_audio_and_data_entry_points_default_to_cuda(monkeypatch):
+    """seamless's serve state and the loader's batches go to ``cuda``
+    unless a device is named, and raise without CUDA."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import TokenStore, synthetic_corpus, token_batches
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import lm
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced(get_config("seamless-m4t-large-v2"))
+    store = TokenStore(synthetic_corpus(1_000, cfg.vocab), cfg.vocab)
+    for make in (lambda: lm.init_params(cfg, 0),
+                 lambda: lm.init_serve_state(cfg, 1, 8, enc_len=4),
+                 lambda: token_batches(store, cfg, batch=1, seq=8),
+                 lambda: launch_serve.main(["--arch", cfg.name,
+                                            "--preset", "smoke"])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
 

@@ -854,6 +854,45 @@ def test_lm_int8_cache_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("frames", [6, 2048, None])
+def test_lm_audio_on_card_matches_cpu(cuda, frames):
+    """Reduced seamless in float32 through ``check_card_matches_cpu``:
+    over the loader's frames (6, both routes of ``_bidir_attention``
+    direct; 2,048, both flash), served by prefill with them and decode on
+    the memory; and (None) through the engine on an empty memory. Tokens
+    equal, logits within rtol 1e-4 / atol 1e-5 std."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import TokenStore, synthetic_corpus, token_batches
+    from repro_torch.serve import lm_parity
+    cfg = reduced(get_config("seamless-m4t-large-v2"))
+    fr = None
+    if frames is not None:
+        store = TokenStore(synthetic_corpus(10_000, cfg.vocab), cfg.vocab)
+        fr = next(token_batches(store, cfg, batch=lm_parity.BATCH,
+                                seq=frames, device="cpu"))["frames"].numpy()
+    lm_parity.check_card_matches_cpu(cfg, seed=1, max_len=24, frames=fr)
+
+
+@pytest.mark.cuda
+def test_token_batches_on_the_card(cuda):
+    """With no device named the loader's batches are on ``cuda``, each
+    tensor equal to the same batch made for the CPU."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import TokenStore, synthetic_corpus, token_batches
+    for arch in ("glm4-9b", "llava-next-mistral-7b", "seamless-m4t-large-v2"):
+        cfg = reduced(get_config(arch))
+        store = TokenStore(synthetic_corpus(10_000, cfg.vocab), cfg.vocab,
+                           device_unpack=True)
+        card = next(token_batches(store, cfg, batch=3, seq=32, seed=2,
+                                  start_step=4))
+        host = next(token_batches(store, cfg, batch=3, seq=32, seed=2,
+                                  start_step=4, device="cpu"))
+        assert card.keys() == host.keys()
+        for k, t in card.items():
+            assert t.is_cuda and torch.equal(t.cpu(), host[k]), k
+
+
+@pytest.mark.cuda
 def test_lm_entry_points_default_to_the_card(cuda):
     from repro_torch.configs import get_config, reduced
     from repro_torch.models import lm

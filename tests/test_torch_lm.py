@@ -2,7 +2,7 @@
 against ``repro.models.lm`` and ``repro.configs`` on the CPU.
 
 For each arch of the families the port serves (``dense``, ``vlm``,
-``moe``) at ``reduced()``, the reference's parameters (``init_params`` from
+``moe``, ``audio``) at ``reduced()``, the reference's parameters (``init_params`` from
 a JAX key) are carried into the port with ``params_from_reference`` and the
 same seeded numpy batches go through both packages. Logits (forward,
 prefill, decode) are held to JAX's within rtol 1e-4 / atol 1e-5 with argmax
@@ -16,6 +16,9 @@ For a MoE arch the reference runs op by op (``jax.disable_jit``) with its
 and the port's ids (``moe.routing_trace``) must equal them with no
 forcing; the forward's load-balance and z losses are held as the logits.
 The bf16 MoE cases, which force JAX's ids, are in ``test_torch_moe.py``.
+An audio arch's batches carry ``frames`` as ``tests/test_arch_smoke.py``'s
+do (S of them, the serve state's ``enc_len`` S); its block-level cases are
+in ``test_torch_audio.py``.
 """
 import contextlib
 import dataclasses
@@ -36,7 +39,8 @@ from repro_torch.models import blocks, lm, moe
 LM_ARCHS = ["glm4-9b", "qwen2-7b", "minicpm-2b", "starcoder2-15b",
             "llava-next-mistral-7b"]
 MOE_ARCHS = ["moonshot-v1-16b-a3b", "llama4-maverick-400b-a17b"]
-SERVED_ARCHS = LM_ARCHS + MOE_ARCHS
+AUDIO_ARCHS = ["seamless-m4t-large-v2"]
+SERVED_ARCHS = LM_ARCHS + MOE_ARCHS + AUDIO_ARCHS
 OTHER_ARCHS = [a for a in ARCH_IDS if a not in SERVED_ARCHS]
 TOL = dict(rtol=1e-4, atol=1e-5)
 S = 8          # smoke sequence length
@@ -69,6 +73,9 @@ def _batch(cfg, rng, s=S, b=B):
     if cfg.family == "vlm":
         batch["patch_embeds"] = rng.standard_normal(
             (b, cfg.n_patches, cfg.frontend_dim)).astype(np.float32)
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal(
+            (b, s, cfg.frontend_dim)).astype(np.float32)
     return batch
 
 
@@ -208,7 +215,7 @@ def test_init_params_layout_and_seed(arch, arch_state):
         assert tuple(t.shape) == fj[path].shape and t.dtype == torch.float32
         assert torch.equal(t, fb[path]), path
         name = path.rsplit("/", 1)[-1]
-        if name in ("ln1", "ln2", "final_norm"):
+        if name in ("ln1", "ln2", "ln_x", "final_norm", "enc_norm"):
             assert torch.equal(t, torch.ones_like(t))
         elif name in ("bq", "bk", "bv"):
             assert torch.equal(t, torch.zeros_like(t))
@@ -268,17 +275,20 @@ def test_forward_matches_reference(arch, arch_state, monkeypatch):
 
 # -- serving ----------------------------------------------------------------------
 def _prefill_decode(cfg, params, batch, max_len, port):
-    """prefill(t0..t6) + decode(t7) on one package -> (pre, step, pos)."""
+    """prefill(t0..t6) + decode(t7) on one package -> (pre, step, pos). An
+    audio batch's frames go to the prefill (``enc_len`` their count)."""
     pre = {k: (v[:, :S - 1] if k == "tokens" else v)
            for k, v in batch.items()}
     last = batch["tokens"][:, S - 1:S]
+    enc_len = batch["frames"].shape[1] if "frames" in batch else 0
     if port:
-        state = lm.init_serve_state(cfg, B, max_len=max_len, device="cpu")
+        state = lm.init_serve_state(cfg, B, max_len=max_len, device="cpu",
+                                    enc_len=enc_len)
         pre_logits, state = lm.prefill(cfg, params, state, _t(pre))
         step, state = lm.decode_step(cfg, params, state,
                                      torch.from_numpy(last))
         return pre_logits, step, state["pos"]
-    state = jlm.init_serve_state(cfg, B, max_len=max_len)
+    state = jlm.init_serve_state(cfg, B, max_len=max_len, enc_len=enc_len)
     pre_logits, state = jlm.prefill(cfg, params, state, _j(pre))
     step, state = jlm.decode_step(cfg, params, state, jnp.asarray(last))
     return pre_logits, step, int(state["pos"])
@@ -375,7 +385,7 @@ def _close_bf16(port, ref, vocab):
                                   ref.argmax(-1)[clear])
 
 
-@pytest.mark.parametrize("arch", LM_ARCHS)
+@pytest.mark.parametrize("arch", LM_ARCHS + AUDIO_ARCHS)
 def test_bfloat16_forward_matches_reference(arch, bf16_state):
     """The reference's bf16 parameters carried bit for bit; the forward's
     logits against JAX's."""
@@ -387,7 +397,7 @@ def test_bfloat16_forward_matches_reference(arch, bf16_state):
     _close_bf16(logits, jlogits, cfg.vocab)
 
 
-@pytest.mark.parametrize("arch", LM_ARCHS)
+@pytest.mark.parametrize("arch", LM_ARCHS + AUDIO_ARCHS)
 @pytest.mark.parametrize("max_len", [S, 2048])
 def test_bfloat16_prefill_decode_matches_reference(arch, max_len,
                                                    bf16_state):

@@ -8,9 +8,11 @@ reference's parameters for reduced glm4-9b (``init_params`` from
 each scenario runs its own asserts on each package's engine, and the
 port's greedy tokens must equal the JAX engine's, request by request.
 The ghost-slot, solo-against-batch and greedy-against-forward scenarios
-also run on the two MoE archs (:data:`ENGINE_ARCHS`): a MoE layer routes
-each batch row on its own, so a request's tokens do not depend on its
-neighbours.
+also run on the two MoE archs and on seamless (:data:`ENGINE_ARCHS`): a
+MoE layer routes each batch row on its own, so a request's tokens do not
+depend on its neighbours; the engine passes no frames, so seamless's
+cross-attention reads an empty memory in both engines (its forward is
+given zero frames to match).
 
 Temperature sampling draws from each engine's own seeded generator; JAX's
 and torch's streams cannot match (a deliberate difference), so that test
@@ -50,18 +52,22 @@ class _Package:
 
     def logits(self, seq):
         """The training forward's last-position logits over ``seq``."""
-        tokens = np.asarray([seq], np.int32)
+        batch = {"tokens": np.asarray([seq], np.int32)}
+        if self.cfg.family == "audio":            # the engine's empty memory
+            batch["frames"] = np.zeros((1, 0, self.cfg.frontend_dim),
+                                       np.float32)
         if self.port:
             out, _, _ = lm.forward(self.cfg, self.params,
-                                   {"tokens": torch.from_numpy(tokens)})
+                                   {k: torch.from_numpy(v)
+                                    for k, v in batch.items()})
             return out[0, -1].numpy()
         out, _, _ = jlm.forward(self.cfg, self.params,
-                                {"tokens": jnp.asarray(tokens)})
+                                {k: jnp.asarray(v) for k, v in batch.items()})
         return np.asarray(out[0, -1])
 
 
 ENGINE_ARCHS = ["glm4-9b", "moonshot-v1-16b-a3b",
-                "llama4-maverick-400b-a17b"]
+                "llama4-maverick-400b-a17b", "seamless-m4t-large-v2"]
 
 
 def _packages(arch):
