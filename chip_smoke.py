@@ -219,6 +219,20 @@ checkout's sources (into build/torch_ext/) and needs one card. Phases:
    against ``lm.forward`` over exactly the prompts, each replay against
    the forward at every position, within ``LM_LOGIT_TOL`` and argmax
    equal past it; prefill and decode timed against their bounds.
+   Recurrent: A adds reduced xlstm-1.3b (mLSTM and sLSTM blocks; its
+   float32 atol 1e-4, ``lm_parity.ATOL_BY_ARCH``) and hymba-1.5b
+   (attention beside SSD heads) at max_len 24 and 2,048. Then each of
+   xlstm-1.3b (48 layers, 4,497,625,088 B in bf16) and hymba-1.5b (32
+   layers, 3,448,838,400 B) at full width and depth, drawn on the card
+   from ``--seed`` in bf16 and then in float32: R1, 8 x 128-token
+   prompts, 32 new, max_len 160; R2, 4 x 1,024, 16 new, max_len 2,048.
+   Each batch is served by the engine, replayed (prefill and decode timed
+   against their bounds, one step's launches) and held against
+   ``lm.forward``: the prefill over exactly the prompts, teacher forcing
+   over the served sequence (padded to 2,048 past 1,024). float32: both
+   within 0.01 and every clear argmax equal; bf16: within
+   ``RECURRENT_BF16_TOL``, twice the reference's own gap on the CPU, the
+   clear argmaxes that agree printed beside the reference's.
 9. report — one JSON line per the kernel table, the nvidia-smi line, and
    last ``{"ok": true, "device": {...}}``.
 
@@ -2935,10 +2949,234 @@ def audio_full_width(lm, get_config, dev, seed: int, smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+# The recurrent families at full width and depth, each model freed before
+# the next: (name, requests, prompt tokens, new tokens, max_len)
+RECURRENT_ARCHS = ("xlstm-1.3b", "hymba-1.5b")
+RECURRENT_BYTES = {"xlstm-1.3b": 4_497_625_088, "hymba-1.5b": 3_448_838_400}
+RECURRENT_RUNS = (("R1", 8, 128, 32, 160), ("R2", 4, 1024, 16, 2048))
+# Bound C, bf16: the largest |logit| difference of the prefill against
+# the forward over exactly the prompts, and of teacher forcing against the
+# forward over the served sequence (padded to 2,048 past 1,024), each
+# max(0.25, twice the larger of the reference's own two readings at seeds
+# 0 and 1 on the CPU), rounded up to a multiple of 0.05 (PERF.md section
+# 6, fixed before the first card reading): (prefill, teacher forcing)
+RECURRENT_BF16_TOL = {("xlstm-1.3b", "R1"): (0.25, 4.90),
+                      ("xlstm-1.3b", "R2"): (0.25, 4.90),
+                      ("hymba-1.5b", "R1"): (0.25, 0.60),
+                      ("hymba-1.5b", "R2"): (0.70, 0.55)}
+# the reference's own share of clear argmaxes (top-2 margin past 0.25)
+# that agree, seeds 0 / 1: printed beside the card's, not gated
+RECURRENT_REF_AGREE = {
+    ("xlstm-1.3b", "R1"): "400 of 428 / 379 of 400",
+    ("xlstm-1.3b", "R2"): "1,303 of 1,310 / 1,311 of 1,312",
+    ("hymba-1.5b", "R1"): "426 of 426 / 408 of 408",
+    ("hymba-1.5b", "R2"): "1,377 of 1,377 / 1,391 of 1,391"}
+RECURRENT_F32_TOL = 0.01        # bound B: float32, both comparisons
+
+
+def recurrent_prefill_ops(cfg, b: int, plen: int) -> tuple[int, int]:
+    """A recurrent prefill's operations, 2 per weight per token and 2 per
+    multiply-add of the GLA chunks (each chunk's C x C scores and
+    intra-chunk product, its inter-chunk read and state update, the
+    normalizer), the sLSTM recurrence, Hymba's causal attention pairs
+    within each layer's window, and the head: -> (operations on
+    ``cfg.dtype`` operands, operations on float32 ones: the float32
+    weights, the GLA's upcast products and the sLSTM recurrence)."""
+    from repro_torch.models import blocks, lm
+    d, di, h = cfg.d_model, cfg.d_inner, cfg.n_heads
+    n = b * plen
+    c = blocks._pick_chunk(plen)
+    kinds = [kind for kind in blocks.block_pattern(cfg)
+             for _ in range(blocks.n_groups(cfg))]
+    windows = lm.build_meta(cfg)[0].get("window")
+    dt_ops, f32_ops = 2 * d * cfg.padded_vocab * n, 0
+    for i, kind in enumerate(kinds):
+        if kind == "mlstm":
+            dk = int(di * cfg.qk_dim_ratio)
+            dkh, dvh = dk // h, di // h
+            dt_ops += 2 * n * (d * 2 * di + 2 * di * dk + di * d +
+                               cfg.conv_width * di)
+            f32_ops += 2 * n * (di * 2 * h + h * (
+                c * dkh + c * dvh + 2 * dkh * dvh + dkh))
+        elif kind == "slstm":
+            dh = d // h
+            dt_ops += 2 * n * d * d
+            f32_ops += 2 * n * (4 * d * d + h * dh * 4 * dh)
+        else:                                  # hymba
+            hd, kv, ds = cfg.head_dim, cfg.n_kv, cfg.ssm_state
+            dvh = di // h
+            w = int(windows[i]) if windows is not None else 0
+            pairs = sum(min(q + 1, w) if w > 0 else q + 1
+                        for q in range(plen)) * b
+            dt_ops += 2 * n * (2 * d * h * hd + 2 * d * kv * hd +
+                               d * 2 * di + di * 2 * h * ds + di * d +
+                               3 * d * cfg.d_ff + cfg.conv_width * di)
+            dt_ops += 4 * h * hd * pairs
+            f32_ops += 2 * n * (di * h + h * (
+                c * ds + c * dvh + 2 * ds * dvh))
+    if cfg.dtype == "float32":
+        return 0, dt_ops + f32_ops
+    return dt_ops, f32_ops
+
+
+def recurrent_state_bytes(state, plen: int, max_len: int) -> int:
+    """A decode step's serve state: every recurrent state and conv
+    history whole, an attention cache's K/V up to the prompt."""
+    total = 0
+    for c in state["blocks"]:
+        for name, t in c.items():
+            if name == "attn":
+                total += lm_bytes(t) * plen // max_len
+            else:
+                total += lm_bytes(t)
+    return total
+
+
+def recurrent_run(lm, lm_parity, ServeEngine, Request, cfg, params, name,
+                  b, plen, new, max_len, dev, rng, smi) -> None:
+    """One served batch of a recurrent model: the engine's tokens, the
+    teacher-forced replay (timed), one decode step's launches, then the
+    prefill against ``lm.forward`` over exactly the prompts and the replay
+    against the forward over the served sequence (padded to a multiple of
+    1,024 past 1,024: the same flash route and 256-token GLA chunks as the
+    prefill), each within its bound; the argmax agreement at clear
+    positions, gated in float32 and printed beside the reference's in
+    bf16."""
+    bf16 = cfg.dtype == "bfloat16"
+    what = f"{cfg.name} {cfg.dtype} {name} ({b} x {plen}, {new} new, " \
+        f"max_len {max_len})"
+    weights = lm_bytes(params)
+    ServeEngine(cfg, params, batch_size=b, max_len=max_len).run_batch(
+        [Request(prompt=np.zeros(plen, np.int32), max_new_tokens=2)
+         for _ in range(b)])                       # warm-up, not timed
+    prompts = rng.integers(0, cfg.vocab, (b, plen)).astype(np.int32)
+    eng = ServeEngine(cfg, params, batch_size=b, max_len=max_len)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run_batch([Request(prompt=q, max_new_tokens=new)
+                          for q in prompts])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    outs = np.asarray([r.out_tokens for r in done], np.int32)
+    if outs.shape != (b, new) or outs.min() < 0 or outs.max() >= cfg.vocab:
+        fail(f"{what}: served {outs.shape} tokens, not ({b}, {new}) ids in "
+             f"[0, {cfg.vocab})")
+    seq = np.concatenate([prompts, outs], axis=1)
+    serve, state, prefill_s, steps = lm_parity.replay(
+        cfg, params, seq, plen, max_len, dev, timed=True)
+    launches = count_launches(lambda: lm.decode_step(
+        cfg, params, state, torch.from_numpy(seq[:, -1:]).to(dev)))
+    state_bytes = recurrent_state_bytes(state, plen, max_len)
+    del state
+    pre_fwd, _, _ = lm.forward(cfg, params,
+                               {"tokens": torch.from_numpy(prompts).to(dev)})
+    pre_fwd = pre_fwd[..., :cfg.vocab]
+    pre_err = float((serve[:, :plen] - pre_fwd).abs().max())
+    finite = bool(torch.isfinite(pre_fwd).all())
+    del pre_fwd
+    s = seq.shape[1]
+    pad = s if s <= 1024 else -(-s // 1024) * 1024
+    fwd_tokens = np.zeros((b, pad), np.int32)
+    fwd_tokens[:, :s] = seq
+    fwd, _, _ = lm.forward(cfg, params,
+                           {"tokens": torch.from_numpy(fwd_tokens).to(dev)})
+    fwd = fwd[:, :s - 1, :cfg.vocab]
+    finite &= bool(torch.isfinite(serve).all() and torch.isfinite(fwd).all())
+    diff = (serve - fwd).abs()
+    err, mean_err = float(diff.max()), float(diff.mean())
+    pad_pre_err = float(diff[:, :plen].max())
+    del diff
+    top2 = fwd.topk(2, dim=-1)
+    clear = top2.values[..., 0] - top2.values[..., 1] > LM_LOGIT_TOL
+    same = serve.argmax(dim=-1) == top2.indices[..., 0]
+    n_clear, agree = int(clear.sum()), int((same & clear).sum())
+    del serve, fwd, top2, same
+    dt_ops, f32_ops = recurrent_prefill_ops(cfg, b, plen)
+    prefill_b = max(weights / HBM_BYTES_PER_S,
+                    dt_ops / BF16_OPS_PER_S + f32_ops / FP32_OPS_PER_S)
+    step_b = (weights + state_bytes) / HBM_BYTES_PER_S
+    step_s = float(np.median(steps))
+    if bf16:
+        pre_tol, tf_tol = RECURRENT_BF16_TOL[(cfg.name, name)]
+        ref = RECURRENT_REF_AGREE[(cfg.name, name)]
+    else:
+        pre_tol = tf_tol = RECURRENT_F32_TOL
+    log(f"{what}:")
+    log(f"  served: {b * new} new tokens in {wall:.6f} s = "
+        f"{b * new / wall:.3f} tok/s end to end (the engine)")
+    ops = (f"{dt_ops} bf16 ops at 989 TFLOP/s + " if bf16 else "") + \
+        f"{f32_ops} float32 ops at 67 TFLOP/s"
+    log(f"  prefill: {b * plen} tokens in {prefill_s * 1e3:.6f} ms = "
+        f"{b * plen / prefill_s:.1f} tok/s; bound {prefill_b * 1e3:.6f} ms "
+        f"({ops}, or {weights} B of weights at 3.35 TB/s), "
+        f"{prefill_b / prefill_s:.4f} of it")
+    log(f"  decode: median {step_s * 1e3:.6f} ms/step (min "
+        f"{min(steps) * 1e3:.6f}, max {max(steps) * 1e3:.6f}, {len(steps)} "
+        f"steps) = {b / step_s:.1f} tok/s; bound {step_b * 1e3:.6f} ms "
+        f"({weights} B of weights + {state_bytes} B of serve state at 3.35 "
+        f"TB/s), {step_b / step_s:.4f} of it; one step: {launches}")
+    log(f"  prefill vs the forward over exactly the prompts: max |d| "
+        f"{pre_err:.6f} (bound {pre_tol}); vs the forward over the served "
+        f"sequence ({pad} wide): {pad_pre_err:.6f} (not gated)")
+    log(f"  teacher forcing vs the forward: max |d| {err:.6f} over all "
+        f"{b * (s - 1)} positions (bound {tf_tol}), mean |d| {mean_err:.3e};"
+        f" argmax equal to the forward's at {agree} of {n_clear} positions "
+        f"whose top-2 margin exceeds {LM_LOGIT_TOL}" +
+        (f" (the reference's own, seeds 0 / 1: {ref})" if bf16 else ""))
+    log(f"  card: {smi}")
+    if not finite:
+        fail(f"{what}: non-finite logits")
+    if pre_err > pre_tol:
+        fail(f"{what}: prefill logits differ from the forward's over the "
+             f"prompts by {pre_err} > {pre_tol}")
+    if err > tf_tol:
+        fail(f"{what}: teacher-forced logits differ from the forward's by "
+             f"{err} > {tf_tol}")
+    if not bf16 and agree != n_clear:
+        fail(f"{what}: {n_clear - agree} argmaxes differ from the forward's "
+             "past the tolerance")
+
+
+def recurrent_full_width(lm, get_config, dev, seed: int, smi: str) -> None:
+    """xlstm-1.3b and hymba-1.5b at full width and depth, weights drawn on
+    the card from ``seed``, each in bf16 and then float32, each served in
+    R1 (8 x 128-token prompts, 32 new, max_len 160) and R2 (4 x 1,024, 16
+    new, max_len 2,048): :func:`recurrent_run`."""
+    from repro_torch.serve import Request, ServeEngine, lm_parity
+    for arch in RECURRENT_ARCHS:
+        for dtype in ("bfloat16", "float32"):
+            cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            params = lm.init_params(cfg, seed, device=dev)
+            torch.cuda.synchronize()
+            weights = lm_bytes(params)
+            log(f"{arch} in {dtype}: {lm.param_count(params)} parameters, "
+                f"{weights} B of weights drawn on the card in "
+                f"{time.perf_counter() - t0:.3f} s ({cfg.n_layers} layers, "
+                f"d_model {cfg.d_model})")
+            if dtype == "bfloat16" and weights != RECURRENT_BYTES[arch]:
+                fail(f"{arch}: {weights} B of weights, not "
+                     f"{RECURRENT_BYTES[arch]}")
+            rng = np.random.default_rng(seed + 1)
+            for name, b, plen, new, max_len in RECURRENT_RUNS:
+                recurrent_run(lm, lm_parity, ServeEngine, Request, cfg,
+                              params, name, b, plen, new, max_len, dev, rng,
+                              smi)
+            peak = torch.cuda.max_memory_allocated()
+            log(f"{arch} {dtype}: max_memory_allocated {peak} B ({weights} "
+                f"B of weights)")
+            if peak < weights:
+                fail(f"{arch}: {peak} B allocated at peak, {weights} B of "
+                     "weights; the model was not resident")
+            del params
+            torch.cuda.empty_cache()
+
+
 def lm_path(lm, configs, Request, ServeEngine, dev, seed: int,
             smi: str) -> None:
-    """Phase 8: the LM serving path (families dense, vlm, moe and
-    audio)."""
+    """Phase 8: the LM serving path, every family (dense, vlm, moe,
+    audio, ssm and hybrid)."""
     from repro_torch.data import TokenStore, synthetic_corpus, token_batches
     from repro_torch.serve import lm_parity
     log("LM parity at reduced width, float32, the engine on the card "
@@ -2949,6 +3187,8 @@ def lm_path(lm, configs, Request, ServeEngine, dev, seed: int,
               (glm, 2048)]
     cases += [(configs.reduced(configs.get_config(a)), n)
               for a, *_ in MOE_MODELS for n in (24, 2048)]
+    cases += [(configs.reduced(configs.get_config(a)), n)
+              for a in RECURRENT_ARCHS for n in (24, 2048)]
     cases = [(cfg, max_len, None) for cfg, max_len in cases]
     # reduced seamless: over the loader's frames, enc_len the prompt's
     # length (both of _bidir_attention's routes direct), over 2,048 frames
@@ -2971,6 +3211,7 @@ def lm_path(lm, configs, Request, ServeEngine, dev, seed: int,
                   smi)
     lm_moe_full_width(lm, configs.get_config, dev, seed, smi)
     audio_full_width(lm, configs.get_config, dev, seed, smi)
+    recurrent_full_width(lm, configs.get_config, dev, seed, smi)
 
 
 def main() -> None:
@@ -3309,7 +3550,7 @@ def main() -> None:
     launches.update(table6)
     log(f"phase 7 (Table 6) wall: {time.perf_counter() - phase_t0:.3f} s")
 
-    # -- 8. LM serving (families dense, vlm, moe and audio) --------------------------
+    # -- 8. LM serving (every family) ----------------------------------------------------
     phase_t0 = time.perf_counter()
     if torch.backends.cuda.matmul.allow_tf32:
         fail("TF32 matmuls are on: the LM's float32 parity needs full float32")

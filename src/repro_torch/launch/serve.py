@@ -1,18 +1,24 @@
-"""Serving launcher: batched requests against a ``dense``, ``vlm``, ``moe``
-or ``audio`` --arch on --device (``cuda`` unless named). Weights are drawn
+"""Serving launcher: batched requests against any --arch of
+``configs.ARCH_IDS`` (families ``dense``, ``vlm``, ``moe``, ``ssm``,
+``hybrid`` and ``audio``) on --device (``cuda`` unless named). Weights are drawn
 from --seed on the device, at any preset; nothing is loaded. The engine
 takes no frames, as the reference's does not, so an audio arch's
 cross-attention reads an empty memory here.
 
 Examples (at full width on one card: glm4-9b, ~18.8 GB of bf16 weights;
 moonshot-v1-16b-a3b, ~57.0 GB; seamless-m4t-large-v2, ~4.1 GB;
-llama4-maverick's ~795 GB do not fit one):
+xlstm-1.3b, ~4.5 GB; hymba-1.5b, ~3.4 GB; llama4-maverick's ~795 GB do
+not fit one):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \\
       --preset full --requests 8
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch moonshot-v1-16b-a3b --preset full --requests 8
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch seamless-m4t-large-v2 --preset full --requests 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \\
+      --preset full --requests 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
+      --preset full --requests 8
 """
 from __future__ import annotations
 

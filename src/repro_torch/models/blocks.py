@@ -1,27 +1,30 @@
-"""Block definitions + initializers: the ``dense`` kind (families ``dense``
-and ``vlm``), the ``moe`` kind (family ``moe``), and the audio family's
-``enc`` (a bidirectional dense block) and ``xdec`` (a decoder block with
-cross-attention over the encoder's output, ``memory``).
+"""Block definitions + initializers for all seven kinds: ``dense``
+(families ``dense`` and ``vlm``), ``moe`` (family ``moe``), ``mlstm`` and
+``slstm`` (family ``ssm``: xLSTM's matrix-memory and scalar-memory blocks),
+``hymba`` (family ``hybrid``: attention beside SSD heads), and the audio
+family's ``enc`` (a bidirectional dense block) and ``xdec`` (a decoder
+block with cross-attention over the encoder's output, ``memory``).
 
 Layers are organized as a repeating *pattern* of block kinds (e.g. llama4:
 ``['dense', 'moe']`` x 24 groups; xLSTM: ``['mlstm']*7 + ['slstm']`` x 6).
 Params for each pattern position are stacked over groups (a leading group
 dimension, the reference's pytree layout), and the stack runs a Python loop
-over groups on views of them. Per-layer non-trained metadata rides in a
-parallel ``meta`` list.
+over groups on views of them. Per-layer non-trained metadata (Hymba's
+per-layer attention window) rides in a parallel ``meta`` list.
 
 Each kind implements:
   init_<kind>(cfg, generator, n, device) -> stacked params dict
   apply_<kind>(cfg, p, meta, x, *, cache, pos, ctx) -> (x, cache, aux)
 
 ``ctx`` is the forward's :class:`StepContext`: what every layer shares.
-``xdec`` also takes ``memory``.
-
-The recurrent kinds (``mlstm``, ``slstm``, ``hymba``) come with ROADMAP.md
-Queue 1 item 5(b); ``block_pattern`` and ``n_groups`` are whole, because
-``configs.reduced`` reads them for every arch.
+``xdec`` also takes ``memory``. A cache is one group's views of the
+stacked serve state, updated in place: attention K/V, and the recurrent
+kinds' states (the GLA state, normalizer and conv history of ``mlstm``,
+sLSTM's h and c, Hymba's K/V, conv history and SSD state).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -32,6 +35,18 @@ from repro_torch.models.attention import (attention, attention_mask,
                                           is_direct)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.flash import flash_attention
+from repro_torch.models.gla import chunked_gla, gla_step
+
+
+def _pick_chunk(s: int, target: int = 256) -> int:
+    """The reference's GLA chunk for a sequence of ``s``: s itself up to
+    ``target``, else ``target`` where it divides s, else gcd(s, target)
+    (1,040 gives 16)."""
+    if s <= target:
+        return s
+    if s % target == 0:
+        return target
+    return math.gcd(s, target)
 
 
 # =====================================================================
@@ -296,6 +311,209 @@ def apply_moe(cfg: ModelConfig, p, meta, x, *, cache, pos: int,
 
 
 # =====================================================================
+# recurrent state shared by mLSTM and Hymba
+# =====================================================================
+def _causal_conv(x, w, state=None):
+    """Depthwise causal conv. x (B,S,C), w (W,C); ``state``: the (B,W-1,C)
+    history (zeros without). Returns (silu(y), new history). The taps are
+    summed as the reference sums them (Python ``sum`` from 0, in
+    ascending tap order, in x's dtype), and the SiLU is XLA's expansion
+    (``moe._silu``)."""
+    width = w.shape[0]
+    if state is None:
+        pad = x.new_zeros((x.shape[0], width - 1, x.shape[2]))
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)
+    y = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(width))
+    new_state = xp[:, -(width - 1):] if width > 1 else pad
+    return moe._silu(y), new_state
+
+
+def _save(cache: dict, **new) -> None:
+    """Write a step's recurrent state into one group's cache views."""
+    for name, t in new.items():
+        cache[name].copy_(t)
+
+
+# =====================================================================
+# mLSTM block (xLSTM): chunked GLA core with a separate normalizer
+# =====================================================================
+def init_mlstm(cfg: ModelConfig, generator, n: int, device):
+    """The gate projection ``wif`` is float32 whatever ``cfg.dtype`` is, as
+    the reference's."""
+    dt = L.dtype_of(cfg.dtype)
+    di = cfg.d_inner
+    dk = int(di * cfg.qk_dim_ratio)
+    return {"ln": torch.ones((n, cfg.d_model), dtype=dt, device=device),
+            "w_up": L.dense_init(generator, (n, cfg.d_model, 2 * di), dt,
+                                 device),
+            "conv_w": L.dense_init(generator, (n, cfg.conv_width, di), dt,
+                                   device, scale=0.5),
+            "wq": L.dense_init(generator, (n, di, dk), dt, device),
+            "wk": L.dense_init(generator, (n, di, dk), dt, device),
+            "wif": L.dense_init(generator, (n, di, 2 * cfg.n_heads),
+                                torch.float32, device),
+            "w_down": L.dense_init(generator, (n, di, cfg.d_model), dt,
+                                   device),
+            "ln_heads": torch.ones((n, di), dtype=dt, device=device)}
+
+
+def apply_mlstm(cfg: ModelConfig, p, meta, x, *, cache, pos: int,
+                ctx: StepContext):
+    """Without a cache, the chunked GLA over the sequence; with one, a
+    one-token call is a :func:`gla_step` on the cached state, and a longer
+    one a prefill that restarts the GLA state and normalizer from zero (as
+    the reference's does) while the conv history carries over."""
+    b, s, _ = x.shape
+    h_heads = cfg.n_heads
+    di = cfg.d_inner
+    dkh = p["wq"].shape[-1] // h_heads
+    dvh = di // h_heads
+    hin = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    xi, z = torch.chunk(hin @ p["w_up"], 2, dim=-1)       # (B,S,di) each
+    xc, new_conv = _causal_conv(xi, p["conv_w"],
+                                None if cache is None else cache["conv"])
+    q = (xc @ p["wq"]).reshape(b, s, h_heads, dkh)
+    k = (xc @ p["wk"]).reshape(b, s, h_heads, dkh) / (dkh ** 0.5)
+    v = xi.reshape(b, s, h_heads, dvh)
+    gates = xi.float() @ p["wif"]                          # (B,S,2H) f32
+    i_gate = torch.sigmoid(gates[..., :h_heads])
+    log_f = F.logsigmoid(gates[..., h_heads:])
+    k = k * i_gate[..., None].to(k.dtype)
+    if cache is not None and s == 1:
+        st, out1, n_st, n_out = gla_step(
+            cache["state"], q[:, 0], k[:, 0], v[:, 0], log_f[:, 0],
+            nstate=cache["nstate"])
+        out, n_out = out1[:, None], n_out[:, None]
+    else:
+        out, st, n_out, n_st = chunked_gla(q, k, v, log_f,
+                                           chunk=_pick_chunk(s),
+                                           normalizer=True)
+    hsv = out / torch.clamp(n_out.abs(), min=1.0)[..., None].to(out.dtype)
+    hsv = L.rms_norm(hsv.reshape(b, s, di), p["ln_heads"], cfg.norm_eps) * \
+        moe._silu(z)
+    x = x + hsv @ p["w_down"]
+    if cache is not None:
+        _save(cache, state=st, nstate=n_st, conv=new_conv)
+    return x, cache, (0.0, 0.0)
+
+
+# =====================================================================
+# sLSTM block (xLSTM): a sequential scan, block-diagonal recurrence
+# =====================================================================
+def init_slstm(cfg: ModelConfig, generator, n: int, device):
+    """``w``, ``r`` and ``b`` are float32 whatever ``cfg.dtype`` is; ``r``
+    is block-diagonal, one (dh, 4 dh) block a head."""
+    dt = L.dtype_of(cfg.dtype)
+    d = cfg.d_model
+    h = cfg.n_heads
+    dh = d // h
+    return {"ln": torch.ones((n, d), dtype=dt, device=device),
+            "w": L.dense_init(generator, (n, d, 4 * d), torch.float32,
+                              device),
+            "r": L.dense_init(generator, (n, h, dh, 4 * dh), torch.float32,
+                              device),
+            "b": torch.zeros((n, 4 * d), dtype=torch.float32, device=device),
+            "w_down": L.dense_init(generator, (n, d, d), dt, device)}
+
+
+def apply_slstm(cfg: ModelConfig, p, meta, x, *, cache, pos: int,
+                ctx: StepContext):
+    """One Python step a token, in float32 (the reference's ``lax.scan``),
+    from zeros without a cache and from the cached (h, c) with one. The
+    gates split per head: ``pre`` is (B,S,H,4 dh) before the i/f/z/o
+    split."""
+    b, s, d = x.shape
+    h = cfg.n_heads
+    dh = d // h
+    hin = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    pre = (hin.float() @ p["w"] + p["b"]).reshape(b, s, h, 4 * dh)
+    if cache is None:
+        h_t = x.new_zeros((b, h, dh), dtype=torch.float32)
+        c_t = torch.zeros_like(h_t)
+    else:
+        h_t, c_t = cache["h"], cache["c"]
+    outs = []
+    for t in range(s):
+        gates = pre[:, t] + torch.einsum("bhd,hdk->bhk", h_t, p["r"])
+        i, f, zg, o = torch.chunk(gates, 4, dim=-1)
+        c_t = torch.sigmoid(f) * c_t + torch.sigmoid(i) * torch.tanh(zg)
+        h_t = torch.sigmoid(o) * torch.tanh(c_t)
+        outs.append(h_t)
+    out = torch.stack(outs, dim=1).reshape(b, s, d)
+    if cache is not None:
+        _save(cache, h=h_t, c=c_t)
+    x = x + out.to(x.dtype) @ p["w_down"]
+    return x, cache, (0.0, 0.0)
+
+
+# =====================================================================
+# Hymba block: attention beside SSD (Mamba-2 style) heads
+# =====================================================================
+def init_hymba(cfg: ModelConfig, generator, n: int, device):
+    """``w_dt`` and ``a_log`` are float32 whatever ``cfg.dtype`` is."""
+    dt = L.dtype_of(cfg.dtype)
+    d, di, ds, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.n_heads
+    return {"ln1": torch.ones((n, d), dtype=dt, device=device),
+            "ln2": torch.ones((n, d), dtype=dt, device=device),
+            "attn": _attn_init(cfg, generator, n, dt, device),
+            "w_in": L.dense_init(generator, (n, d, 2 * di), dt, device),
+            "conv_w": L.dense_init(generator, (n, cfg.conv_width, di), dt,
+                                   device, scale=0.5),
+            "w_bc": L.dense_init(generator, (n, di, 2 * h * ds), dt, device),
+            "w_dt": L.dense_init(generator, (n, di, h), torch.float32,
+                                 device),
+            "a_log": torch.zeros((n, h), dtype=torch.float32, device=device),
+            "norm_attn": torch.ones((n, d), dtype=dt, device=device),
+            "norm_ssm": torch.ones((n, d), dtype=dt, device=device),
+            "w_o_ssm": L.dense_init(generator, (n, di, d), dt, device),
+            "mlp": _mlp_init(cfg, generator, n, dt, device)}
+
+
+def apply_hymba(cfg: ModelConfig, p, meta, x, *, cache, pos: int,
+                ctx: StepContext):
+    """Attention with the layer's window (``meta``) beside the SSD path (a
+    GLA with q = C and k = B, decayed by softplus(dt) exp(a_log)), each
+    path RMS-normed and the two averaged, then the MLP. The cache modes are
+    :func:`apply_mlstm`'s, with the K/V cache beside the SSD state."""
+    b, s, d = x.shape
+    h = cfg.n_heads
+    di, ds = cfg.d_inner, cfg.ssm_state
+    hin = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    window = meta.get("window", cfg.sliding_window or 0)
+    # ---- attention path ----
+    attn_out, _ = _attn_apply(cfg, p["attn"], hin,
+                              cache=None if cache is None else cache["attn"],
+                              pos=pos, window=window, ctx=ctx)
+    # ---- SSD path ----
+    xs, z = torch.chunk(hin @ p["w_in"], 2, dim=-1)       # (B,S,di)
+    xc, new_conv = _causal_conv(xs, p["conv_w"],
+                                None if cache is None else cache["conv"])
+    bmat, cmat = torch.chunk((xc @ p["w_bc"]).reshape(b, s, h, 2 * ds), 2,
+                             dim=-1)
+    dt_pos = F.softplus(xc.float() @ p["w_dt"])            # (B,S,H) f32
+    log_a = -dt_pos * torch.exp(p["a_log"])[None, None, :]
+    v = xs.reshape(b, s, h, di // h) * dt_pos[..., None].to(xs.dtype)
+    if cache is not None and s == 1:
+        st, out1 = gla_step(cache["state"], cmat[:, 0], bmat[:, 0], v[:, 0],
+                            log_a[:, 0])
+        ssm_out = out1[:, None]
+    else:
+        ssm_out, st = chunked_gla(cmat, bmat, v, log_a, chunk=_pick_chunk(s))
+    ssm_out = (ssm_out.reshape(b, s, di) * moe._silu(z)) @ p["w_o_ssm"]
+    # ---- fuse (the mean of the per-path norms, Hymba section 3) ----
+    fused = 0.5 * (L.rms_norm(attn_out, p["norm_attn"], cfg.norm_eps) +
+                   L.rms_norm(ssm_out, p["norm_ssm"], cfg.norm_eps))
+    x = x + fused
+    h_mid = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    x = x + _mlp_apply(p["mlp"], h_mid)
+    if cache is not None:
+        _save(cache, conv=new_conv, state=st)
+    return x, cache, (0.0, 0.0)
+
+
+# =====================================================================
 # encoder block + enc-dec decoder block (audio)
 # =====================================================================
 def init_enc(cfg: ModelConfig, generator, n: int, device):
@@ -341,7 +559,9 @@ def apply_xdec(cfg: ModelConfig, p, meta, x, *, cache, pos: int,
     return x, cache, (0.0, 0.0)
 
 
-INIT = {"dense": init_dense, "moe": init_moe, "enc": init_enc,
+INIT = {"dense": init_dense, "moe": init_moe, "mlstm": init_mlstm,
+        "slstm": init_slstm, "hymba": init_hymba, "enc": init_enc,
         "xdec": init_xdec}
-APPLY = {"dense": apply_dense, "moe": apply_moe, "enc": apply_enc,
+APPLY = {"dense": apply_dense, "moe": apply_moe, "mlstm": apply_mlstm,
+         "slstm": apply_slstm, "hymba": apply_hymba, "enc": apply_enc,
          "xdec": apply_xdec}

@@ -9,13 +9,14 @@ Public surface:
   init_serve_state(cfg, B, max_len, device, enc_len=0)  zeroed caches
   prefill / decode_step(cfg, params, state, ..) serve steps
 
-Families ``dense``, ``vlm``, ``moe`` and ``audio`` (an encoder over the
-batch's ``frames``, whose output, ``memory``, the decoder's
-cross-attention reads; a serve state keeps it after prefill); ``ssm`` and
-``hybrid`` raise ``NotImplementedError`` naming the ROADMAP.md item that
-ports them. A MoE layer's load-balance and z losses are summed over the
-stack, as the reference sums them. Training (``train_loss``,
-``chunked_ce``, the flash backward) comes with the training slice.
+Every family of the reference: ``dense``, ``vlm``, ``moe``, ``ssm``
+(xLSTM's mLSTM and sLSTM blocks), ``hybrid`` (Hymba: attention beside SSD
+heads) and ``audio`` (an encoder over the batch's ``frames``, whose
+output, ``memory``, the decoder's cross-attention reads; a serve state
+keeps it after prefill). A MoE layer's load-balance and z losses are
+summed over the stack, as the reference sums them. Training
+(``train_loss``, ``chunked_ce``, the flash backward) comes with the
+training slice.
 """
 from __future__ import annotations
 
@@ -30,16 +31,6 @@ from repro_torch.models.blocks import (APPLY, INIT, StepContext,
 from repro_torch.models.config import ModelConfig
 
 NEG_INF = -1e30
-
-_NOT_PORTED = {"ssm": "5(b), ssm/hybrid serving",
-               "hybrid": "5(b), ssm/hybrid serving"}
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP.md "
-            f"Queue 1 item {_NOT_PORTED[cfg.family]})")
 
 
 # =====================================================================
@@ -74,7 +65,6 @@ def init_params(cfg: ModelConfig, generator_or_seed, device=None) -> dict:
     for the same seed: carry a reference's parameters with
     :func:`params_from_reference` to compare the two."""
     device = resolve_device(device)
-    _check_family(cfg)
     gen = generator_or_seed
     if not isinstance(gen, torch.Generator):
         gen = torch.Generator(
@@ -169,6 +159,14 @@ def _unstack(tree, g: int) -> list:
             for gi in range(g)]
 
 
+def _cache_keys(cache: dict, s: int) -> int:
+    """T, the key length of one pattern position's cache: its K/V's
+    (nested under "self" for xdec, "attn" for hymba), or ``s`` where the
+    kind has none (the xLSTM kinds)."""
+    kv = cache.get("self", cache.get("attn", cache))
+    return kv["k"].shape[2] if "k" in kv else s
+
+
 def run_stack(cfg: ModelConfig, params_blocks, metas, x, *, caches=None,
               pos: int = 0, memory=None, pattern=None):
     """-> (x, aux, z, caches). ``pattern`` is the config's decoder pattern
@@ -181,10 +179,7 @@ def run_stack(cfg: ModelConfig, params_blocks, metas, x, *, caches=None,
     gp = [_unstack(p, g) for p in params_blocks]
     gc = [_unstack(c, g) for c in caches] if caches is not None else None
     s = x.shape[1]
-    if caches is None:
-        t = s
-    else:                     # an xdec cache nests its K/V under "self"
-        t = caches[0].get("self", caches[0])["k"].shape[2]
+    t = s if caches is None else _cache_keys(caches[0], s)
     ctx = StepContext(cfg, s, t, pos, None if caches is None else pos + s,
                       x.device)
     aux = z = 0.0
@@ -208,7 +203,6 @@ def _hidden(cfg: ModelConfig, params, batch, caches):
     """Shared trunk: embeddings + frontends (the vision projection, the
     audio encoder) + block stack + final norm. Returns (x_final, (aux, z),
     new_caches)."""
-    _check_family(cfg)
     tokens = batch["tokens"]
     pos = caches["pos"] if caches is not None else 0
     x = embed_tokens(cfg, params["embed"], tokens)
@@ -286,19 +280,42 @@ def _zero_attn_cache(cfg: ModelConfig, g: int, b: int, max_len: int, dt,
 
 def init_serve_state(cfg: ModelConfig, batch_size: int, max_len: int,
                      device=None, *, enc_len: int = 0) -> dict:
-    """Zeroed caches on ``device`` (``cuda`` unless named): attention K/V
-    for each ``dense`` and ``moe`` position of the pattern, self-attention
-    K/V under ``"self"`` for ``xdec``; the audio family also holds
-    ``memory``, (B, enc_len, D) zeros in the model's dtype (a prefill with
-    frames replaces it). ``pos`` is a host int."""
+    """Zeroed caches on ``device`` (``cuda`` unless named), one per
+    position of the pattern, in the reference's shapes and dtypes:
+    attention K/V for ``dense`` and ``moe``; the float32 GLA state and
+    normalizer and the conv history (model dtype) for ``mlstm``; float32 h
+    and c for ``slstm``; K/V under ``"attn"``, the conv history and the
+    float32 SSD state for ``hymba``; self-attention K/V under ``"self"``
+    for ``xdec``. The audio family also holds ``memory``, (B, enc_len, D)
+    zeros in the model's dtype (a prefill with frames replaces it).
+    ``pos`` is a host int."""
     device = resolve_device(device)
-    _check_family(cfg)
     dt = L.dtype_of(cfg.dtype)
     g = n_groups(cfg)
+    b, di, h = batch_size, cfg.d_inner, cfg.n_heads
+
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
     caches = []
     for kind in block_pattern(cfg):
-        kv = _zero_attn_cache(cfg, g, batch_size, max_len, dt, device)
-        caches.append({"self": kv} if kind == "xdec" else kv)
+        if kind == "mlstm":
+            dk = int(di * cfg.qk_dim_ratio) // h
+            caches.append({"state": zeros(g, b, h, dk, di // h),
+                           "nstate": zeros(g, b, h, dk),
+                           "conv": zeros(g, b, cfg.conv_width - 1, di,
+                                         dtype=dt)})
+        elif kind == "slstm":
+            dh = cfg.d_model // h
+            caches.append({"h": zeros(g, b, h, dh), "c": zeros(g, b, h, dh)})
+        elif kind == "hymba":
+            caches.append({
+                "attn": _zero_attn_cache(cfg, g, b, max_len, dt, device),
+                "conv": zeros(g, b, cfg.conv_width - 1, di, dtype=dt),
+                "state": zeros(g, b, h, cfg.ssm_state, di // h)})
+        else:
+            kv = _zero_attn_cache(cfg, g, b, max_len, dt, device)
+            caches.append({"self": kv} if kind == "xdec" else kv)
     state = {"blocks": caches, "pos": 0}
     if cfg.family == "audio":
         state["memory"] = torch.zeros((batch_size, enc_len, cfg.d_model),

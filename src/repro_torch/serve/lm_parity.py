@@ -4,8 +4,8 @@
 hold the card to the CPU through :func:`check_card_matches_cpu`, so the two
 share one definition of "the card equals the CPU": greedy tokens equal,
 and prefill and decode logits within rtol 1e-4 / atol 1e-5 in units of the
-CPU logits' standard deviation. cuBLAS and the CPU's BLAS sum in another
-order (TF32 off), and a logit's rounding follows the size of the terms it
+CPU logits' standard deviation (xlstm's atol 1e-4: :data:`ATOL_BY_ARCH`).
+cuBLAS and the CPU's BLAS sum in another order (TF32 off), and a logit's rounding follows the size of the terms it
 sums, not its own: minicpm's tied embeddings put its logits at std ~5,
 the other archs' at ~0.6.
 
@@ -45,6 +45,12 @@ from repro_torch.models import blocks, lm, moe
 from repro_torch.serve.engine import Request, ServeEngine
 
 RTOL, ATOL = 1e-4, 1e-5        # atol in units of the CPU logits' std
+# xlstm's 16 reduced layers (14 of them a chunked GLA whose float32 state,
+# normalizer and divisor each sum in another order) put two float32
+# implementations on the same inputs 4.7e-5 / 2.1e-5 std apart at seeds 0 /
+# 1 (the port's CPU replay against the reference's; PERF.md section 6,
+# fixed before the first card reading)
+ATOL_BY_ARCH = {"xlstm-1.3b": 1e-4}
 MAX_CODE_FLIPS = 8             # int8 codes one apart, per run
 MAX_ROUTE_FLIPS = 2            # MoE expert choices that differ, per run
 ROUTE_MARGIN = 1e-5            # the CPU's top-k margin under which they may
@@ -279,18 +285,19 @@ def check_card_matches_cpu(cfg, device=None, *, seed: int, max_len: int,
                                  f"the card and the CPU (at most "
                                  f"{MAX_CODE_FLIPS})")
     scale = float(cpu_l.std())
+    atol = ATOL_BY_ARCH.get(cfg.name, ATOL)
     err = 0.0
     for b in range(BATCH):
         got, want = card_l[b, :first[b]], cpu_l[b, :first[b]]
         if got.numel():
             err = max(err, float((got - want).abs().max()) / scale)
         if not torch.allclose(got / scale, want / scale, rtol=RTOL,
-                              atol=ATOL):
+                              atol=atol):
             raise AssertionError(
                 f"{what}: logits on the card differ from the CPU's by up to "
-                f"{err:.3e} std (rtol {RTOL}, atol {ATOL} std)")
+                f"{err:.3e} std (rtol {RTOL}, atol {atol} std)")
     compared = int(first.sum()) * cfg.vocab
     note = (f", {flips} int8 codes one apart" if flips else "") + routes
     return (f"{what}: {sum(map(len, toks[0]))} greedy tokens equal, "
-            f"{compared} logits within rtol {RTOL} / atol {ATOL} std "
+            f"{compared} logits within rtol {RTOL} / atol {atol} std "
             f"(max |d| {err:.3e} std, std {scale:.4f}){note}")

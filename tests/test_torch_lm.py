@@ -1,13 +1,16 @@
 """Port parity, the LM: ``repro_torch.models.lm`` and ``repro_torch.configs``
 against ``repro.models.lm`` and ``repro.configs`` on the CPU.
 
-For each arch of the families the port serves (``dense``, ``vlm``,
-``moe``, ``audio``) at ``reduced()``, the reference's parameters (``init_params`` from
-a JAX key) are carried into the port with ``params_from_reference`` and the
-same seeded numpy batches go through both packages. Logits (forward,
-prefill, decode) are held to JAX's within rtol 1e-4 / atol 1e-5 with argmax
-equal: float32 matmuls, norms and softmax sums in another order, over two
-layers (tied embeddings put logits at ~5x the others' scale). The
+For each arch of every family (``dense``, ``vlm``, ``moe``, ``ssm``,
+``hybrid``, ``audio``) at ``reduced()``, the reference's parameters
+(``init_params`` from a JAX key) are carried into the port with
+``params_from_reference`` and the same seeded numpy batches go through both
+packages. Logits (forward, prefill, decode) are held to JAX's within rtol
+1e-4 / atol 1e-5 with argmax equal: float32 matmuls, norms and softmax
+sums in another order, over two layers (tied embeddings put logits at ~5x
+the others' scale). xlstm's atol is ``lm_parity.ATOL_BY_ARCH``'s 1e-4: its
+16 reduced layers, 14 of them a chunked GLA, put two float32
+implementations ~3e-5 apart. The
 reference's own asserts (teacher forcing at 2e-3, the int8 cache's
 closeness) run on the port as well.
 
@@ -16,6 +19,8 @@ For a MoE arch the reference runs op by op (``jax.disable_jit``) with its
 and the port's ids (``moe.routing_trace``) must equal them with no
 forcing; the forward's load-balance and z losses are held as the logits.
 The bf16 MoE cases, which force JAX's ids, are in ``test_torch_moe.py``.
+In bf16, xlstm is held to the reference run op by op (:data:`OP_BY_OP`);
+the recurrent blocks' own cases are in ``test_torch_recurrent.py``.
 An audio arch's batches carry ``frames`` as ``tests/test_arch_smoke.py``'s
 do (S of them, the serve state's ``enc_len`` S); its block-level cases are
 in ``test_torch_audio.py``.
@@ -35,13 +40,14 @@ from repro.models import blocks as jblocks
 from repro.models import lm as jlm
 from repro_torch.configs import ARCH_IDS, get_config, reduced
 from repro_torch.models import blocks, lm, moe
+from repro_torch.serve import lm_parity
 
 LM_ARCHS = ["glm4-9b", "qwen2-7b", "minicpm-2b", "starcoder2-15b",
             "llava-next-mistral-7b"]
 MOE_ARCHS = ["moonshot-v1-16b-a3b", "llama4-maverick-400b-a17b"]
 AUDIO_ARCHS = ["seamless-m4t-large-v2"]
-SERVED_ARCHS = LM_ARCHS + MOE_ARCHS + AUDIO_ARCHS
-OTHER_ARCHS = [a for a in ARCH_IDS if a not in SERVED_ARCHS]
+RECURRENT_ARCHS = ["xlstm-1.3b", "hymba-1.5b"]
+SERVED_ARCHS = LM_ARCHS + MOE_ARCHS + AUDIO_ARCHS + RECURRENT_ARCHS
 TOL = dict(rtol=1e-4, atol=1e-5)
 S = 8          # smoke sequence length
 B = 2
@@ -125,12 +131,14 @@ def both_routed(cfg, monkeypatch):
         assert torch.equal(call.idx, want.to(call.idx.dtype))
 
 
-def _close(port, ref, vocab=None):
+def _close(port, ref, vocab=None, arch=None):
     port, ref = port.numpy(), np.asarray(ref)
     if vocab is not None:
         port, ref = port[..., :vocab], ref[..., :vocab]
         np.testing.assert_array_equal(port.argmax(-1), ref.argmax(-1))
-    np.testing.assert_allclose(port, ref, **TOL)
+    np.testing.assert_allclose(port, ref, rtol=TOL["rtol"],
+                               atol=lm_parity.ATOL_BY_ARCH.get(arch,
+                                                               TOL["atol"]))
 
 
 @pytest.fixture(scope="module")
@@ -215,24 +223,15 @@ def test_init_params_layout_and_seed(arch, arch_state):
         assert tuple(t.shape) == fj[path].shape and t.dtype == torch.float32
         assert torch.equal(t, fb[path]), path
         name = path.rsplit("/", 1)[-1]
-        if name in ("ln1", "ln2", "ln_x", "final_norm", "enc_norm"):
+        if name in ("ln", "ln1", "ln2", "ln_x", "ln_heads", "norm_attn",
+                    "norm_ssm", "final_norm", "enc_norm"):
             assert torch.equal(t, torch.ones_like(t))
-        elif name in ("bq", "bk", "bv"):
+        elif name in ("bq", "bk", "bv", "b", "a_log"):
             assert torch.equal(t, torch.zeros_like(t))
         else:
             assert t.std() > 0
     assert not torch.equal(fa["/embed"],
                            lm.init_params(cfg, 8, device="cpu")["embed"])
-
-
-@pytest.mark.parametrize("arch", OTHER_ARCHS)
-def test_unported_families_raise(arch):
-    cfg = reduced(get_config(arch))
-    for make in (lambda: lm.init_params(cfg, 0, device="cpu"),
-                 lambda: lm.param_specs(get_config(arch)),
-                 lambda: lm.init_serve_state(cfg, 1, 8, device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-            make()
 
 
 def test_params_carry_bfloat16_bit_for_bit():
@@ -266,7 +265,7 @@ def test_forward_matches_reference(arch, arch_state, monkeypatch):
     assert logits.dtype == torch.float32 and caches is None
     assert torch.isfinite(logits[..., :cfg.vocab]).all()
     assert float(logits[..., cfg.vocab:].max()) < -1e29
-    _close(logits, jlogits, cfg.vocab)
+    _close(logits, jlogits, cfg.vocab, arch)
     np.testing.assert_allclose([float(aux), float(z)],
                                [float(jaux), float(jz)], **TOL)
     if cfg.family == "moe":
@@ -315,8 +314,8 @@ def test_prefill_decode_matches_forward(arch, max_len, arch_state,
     np.testing.assert_allclose(step[:, 0].numpy(), full[:, S - 1].numpy(),
                                rtol=2e-3, atol=2e-3)
     assert pos == S and isinstance(pos, int)
-    _close(pre, jpre, cfg.vocab)
-    _close(step, jstep, cfg.vocab)
+    _close(pre, jpre, cfg.vocab, arch)
+    _close(step, jstep, cfg.vocab, arch)
     assert jpos == pos
 
 
@@ -336,7 +335,7 @@ def test_multi_step_decode(arch, arch_state, monkeypatch):
             jlogits, jstate = jlm.decode_step(jcfg, jparams, jstate, jtok)
         assert logits.shape == (B, 1, cfg.padded_vocab)
         assert torch.isfinite(logits[..., :cfg.vocab]).all()
-        _close(logits, jlogits, cfg.vocab)
+        _close(logits, jlogits, cfg.vocab, arch)
         tok = torch.argmax(logits[..., :cfg.vocab], dim=-1).to(torch.int32)
         jtok = jnp.argmax(jlogits[..., :cfg.vocab], axis=-1).astype(
             jnp.int32)
@@ -352,6 +351,19 @@ def test_multi_step_decode(arch, arch_state, monkeypatch):
 # to 0.035 std over these archs). The float32 islands themselves (scores,
 # softmax, RoPE, norms) are held bit for bit in test_torch_lm_core.py.
 BF16_TOL = 2.0 ** -4
+# Archs held to the reference run op by op (``jax.disable_jit``), which
+# rounds every bf16 op's result as the reference's code writes it. The
+# port equals that run in each block bit for bit. Compiled, the scan over
+# a group keeps the residual stream in float32 from one block into the
+# next one's RMS norm (XLA's excess precision on the CPU), and xlstm's 16
+# reduced layers amplify that to ~0.34 of the logits' std between the
+# reference's own two runs: the compiled run is not held.
+OP_BY_OP = {"xlstm-1.3b"}
+
+
+def _reference_run(arch):
+    return jax.disable_jit() if arch in OP_BY_OP else \
+        contextlib.nullcontext()
 
 
 @pytest.fixture(scope="module")
@@ -385,7 +397,7 @@ def _close_bf16(port, ref, vocab):
                                   ref.argmax(-1)[clear])
 
 
-@pytest.mark.parametrize("arch", LM_ARCHS + AUDIO_ARCHS)
+@pytest.mark.parametrize("arch", LM_ARCHS + AUDIO_ARCHS + RECURRENT_ARCHS)
 def test_bfloat16_forward_matches_reference(arch, bf16_state):
     """The reference's bf16 parameters carried bit for bit; the forward's
     logits against JAX's."""
@@ -393,11 +405,12 @@ def test_bfloat16_forward_matches_reference(arch, bf16_state):
     assert params["embed"].dtype == torch.bfloat16
     batch = _batch(cfg, np.random.default_rng(5))
     logits, _, _ = lm.forward(cfg, params, _t(batch))
-    jlogits, _, _ = jlm.forward(jcfg, jparams, _j(batch))
+    with _reference_run(arch):
+        jlogits, _, _ = jlm.forward(jcfg, jparams, _j(batch))
     _close_bf16(logits, jlogits, cfg.vocab)
 
 
-@pytest.mark.parametrize("arch", LM_ARCHS + AUDIO_ARCHS)
+@pytest.mark.parametrize("arch", LM_ARCHS + AUDIO_ARCHS + RECURRENT_ARCHS)
 @pytest.mark.parametrize("max_len", [S, 2048])
 def test_bfloat16_prefill_decode_matches_reference(arch, max_len,
                                                    bf16_state):
@@ -406,7 +419,9 @@ def test_bfloat16_prefill_decode_matches_reference(arch, max_len,
     jcfg, cfg, jparams, params = bf16_state(arch)
     batch = _batch(cfg, np.random.default_rng(6))
     pre, step, pos = _prefill_decode(cfg, params, batch, max_len, True)
-    jpre, jstep, jpos = _prefill_decode(jcfg, jparams, batch, max_len, False)
+    with _reference_run(arch):
+        jpre, jstep, jpos = _prefill_decode(jcfg, jparams, batch, max_len,
+                                            False)
     assert pos == jpos == S
     _close_bf16(pre, jpre, cfg.vocab)
     _close_bf16(step, jstep, cfg.vocab)

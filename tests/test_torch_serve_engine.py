@@ -8,11 +8,13 @@ reference's parameters for reduced glm4-9b (``init_params`` from
 each scenario runs its own asserts on each package's engine, and the
 port's greedy tokens must equal the JAX engine's, request by request.
 The ghost-slot, solo-against-batch and greedy-against-forward scenarios
-also run on the two MoE archs and on seamless (:data:`ENGINE_ARCHS`): a
-MoE layer routes each batch row on its own, so a request's tokens do not
-depend on its neighbours; the engine passes no frames, so seamless's
-cross-attention reads an empty memory in both engines (its forward is
-given zero frames to match).
+also run on the two MoE archs, on seamless and on the recurrent xlstm
+and hymba (:data:`ENGINE_ARCHS`, with glm4-9b every arch of
+``configs.ARCH_IDS`` but the other dense ones): a MoE layer routes each
+batch row on its own, and a recurrent state is a row's own, so a
+request's tokens do not depend on its neighbours; the engine passes no
+frames, so seamless's cross-attention reads an empty memory in both
+engines (its forward is given zero frames to match).
 
 Temperature sampling draws from each engine's own seeded generator; JAX's
 and torch's streams cannot match (a deliberate difference), so that test
@@ -67,7 +69,8 @@ class _Package:
 
 
 ENGINE_ARCHS = ["glm4-9b", "moonshot-v1-16b-a3b",
-                "llama4-maverick-400b-a17b", "seamless-m4t-large-v2"]
+                "llama4-maverick-400b-a17b", "seamless-m4t-large-v2",
+                "xlstm-1.3b", "hymba-1.5b"]
 
 
 def _packages(arch):
@@ -318,7 +321,8 @@ def test_engine_refuses_parameters_off_its_device(packages):
 @pytest.mark.parametrize("arch,cache", [
     ("glm4-9b", "bfloat16"), ("glm4-9b", "int8"),
     ("moonshot-v1-16b-a3b", "bfloat16"),
-    ("llama4-maverick-400b-a17b", "bfloat16")])
+    ("llama4-maverick-400b-a17b", "bfloat16"),
+    ("xlstm-1.3b", "bfloat16"), ("hymba-1.5b", "bfloat16")])
 def test_lm_parity_check_runs_on_the_cpu(arch, cache):
     """``check_card_matches_cpu`` with the CPU standing in for the card:
     every comparison it makes passes, over every logit; a MoE arch's
