@@ -233,7 +233,38 @@ checkout's sources (into build/torch_ext/) and needs one card. Phases:
    within 0.01 and every clear argmax equal; bf16: within
    ``RECURRENT_BF16_TOL``, twice the reference's own gap on the CPU, the
    clear argmaxes that agree printed beside the reference's.
-9. report — one JSON line per the kernel table, the nvidia-smi line, and
+9. LM training — launch counts set to 0 again (as in phase 8, no
+   hand-written kernel runs here; the counts must stay 0), TF32 off. A:
+   ``train.parity.check_train_card_matches_cpu`` for every arch of
+   ``configs.ARCH_IDS`` at ``reduced()`` in float32, B 2 x S 16: one
+   ``train_loss`` step on the card against the CPU (loss within 1e-5 x
+   max(1, loss), each gradient leaf within rtol 1e-4 / atol 1e-5 x its CPU
+   std, xlstm 1e-3, maverick and hymba 3e-5), then one ``apply_updates``
+   of each optimizer from the CPU's gradients and state (rtol 1e-6 / atol
+   1e-8, AdamW8 at most 8 int8 codes a leaf one apart); then reduced
+   glm4-9b at S 2,048 with ``loss_chunk`` 1,024 and ``remat="layer"`` (the flash
+   backward, ``chunked_ce`` and remat on the card). B: the flash backward at
+   minicpm-2b's layer shape (qg 2 x 2,048 x 36 x 1 x 64, chunk 1,024,
+   windows 0 and 1,024) against autograd of direct softmax attention, in
+   float32 (max |d| <= 1e-4 x max |reference|) and in bf16 against float32
+   direct attention over the same bf16 values (1e-2); each route's
+   forward-plus-backward ms and peak memory. C: ``chunked_ce`` at the full
+   vocabulary (tied head 2,304 x 122,880, B 2 x S 2,048, float32) against
+   the unchunked loss: the loss, and the gradients of ``x_final`` and of
+   the head within 1e-5 x max |reference|. D: minicpm-2b at full width and
+   depth in bf16 (2,725,173,504 parameters, 5,450,347,008 B, drawn on the
+   card from ``--seed``, ``remat="layer"``), batches from ``token_batches``
+   over ``TokenStore(synthetic_corpus(2,000,000, 122,753))``: the first
+   batch's loss in bf16 and with a float32 copy of the weights, within
+   ``TRAIN_BF16_LOSS_TOL``; T1, the ``Trainer`` with AdamW, lr 3e-3, WSD,
+   12 steps, warmup 2, B 2 x S 2,048 (the launcher's defaults for this
+   arch): each step's loss, grad norm and lr, every one finite and the
+   loss at step 11 below step 0's; the median step over steps 2-11 beside
+   its bound (``lm_train_flops``) and the function's own
+   (``lm_train_flops_causal``), host calls and device time of one more
+   step, the optimizer's ms, peak memory; T2, the same model with AdamW8
+   for 4 steps, its state's bytes beside AdamW's, peak memory.
+10. report — one JSON line per the kernel table, the nvidia-smi line, and
    last ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits nonzero before the last line. Without CUDA, or
@@ -246,6 +277,7 @@ import dataclasses
 import io
 import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -2353,11 +2385,12 @@ def lm_prefill_flops(cfg, b: int, plen: int) -> int:
         cfg.n_layers * 4 * cfg.n_heads * cfg.head_dim * pairs
 
 
-def count_launches(fn) -> str:
+def count_launches(fn, top: int = 0) -> str:
     """Launch calls, device activities (kernels, copies, fills) and their
     summed device time in one call of ``fn``, from torch.profiler's trace
     (the call's wall is the profiled one, so only the counts and device
-    time are read); "not measured" when the trace shows no device
+    time are read), and with ``top`` the ``top`` activities by summed
+    device time; "not measured" when the trace shows no device
     activity."""
     from torch.profiler import ProfilerActivity, profile
     try:
@@ -2375,8 +2408,15 @@ def count_launches(fn) -> str:
     if not on_card:
         return "not measured (the trace shows no device activity)"
     busy = sum(e.time_range.elapsed_us() for e in on_card)
+    by_name: dict = {}
+    for e in on_card:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    heavy = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    tops = "".join(f"; {us / busy:.3f} in {n} x {name[:60]}"
+                   for name, (n, us) in heavy)
     return (f"{calls} launch calls, {len(on_card)} device activities, "
-            f"{busy:.1f} us of device time")
+            f"{busy:.1f} us of device time{tops}")
 
 
 def lm_full_width(lm, get_config, Request, ServeEngine, dev, seed: int,
@@ -3214,6 +3254,313 @@ def lm_path(lm, configs, Request, ServeEngine, dev, seed: int,
     recurrent_full_width(lm, configs.get_config, dev, seed, smi)
 
 
+# -- phase 9 ------------------------------------------------------------------
+F32_OPS_PER_S = 67e12              # H100 SXM float32, no tensor cores
+TRAIN_ARCH = "minicpm-2b"
+# its bf16 weights: ModelConfig.param_count()'s 2,724,986,880 parameters
+# and the 81 norm scales it leaves out (186,624)
+TRAIN_BYTES = 5_450_347_008
+TRAIN_CORPUS = 2_000_000
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_WARMUP, TRAIN_LR = 2, 2048, 12, 2, 3e-3
+T2_STEPS = 4
+# |bf16 - float32| train_loss of minicpm-2b's first batch at full width:
+# twice the reference's own gap on the CPU (PERF.md section 6, LM training;
+# fixed before the first card reading)
+TRAIN_BF16_LOSS_TOL = 0.17
+FLASH_GRAD_SHAPE = (2, 2048, 36, 1, 64)       # minicpm-2b's layer: B,S,KV,G,dh
+FLASH_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+CE_TOL = 1e-5
+
+
+def lm_train_flops(cfg, b: int, s: int) -> tuple[int, int]:
+    """A train step's products as the reference defines them: (bf16 ops,
+    float32 ops). 6 per weight per token (forward and two backward
+    products); attention's products over every key (no causal block is
+    skipped), 2 B H S T dh each: three with bf16 inputs (the forward
+    scores and p.v, the backward's recomputed scores), four in float32
+    (the backward's dv, dp, dq, dk)."""
+    per = 2 * b * cfg.n_heads * s * s * cfg.head_dim * cfg.n_layers
+    return 6 * lm_matmul_params(cfg) * b * s + 3 * per, 4 * per
+
+
+def lm_train_flops_causal(cfg, b: int, s: int) -> int:
+    """The same step's own work, whatever the design: 6 per weight per
+    token, and attention's six products (forward scores and p.v; backward
+    dv, dp, dq, dk) over the causal pairs only, all with bf16 inputs. The
+    float32 term of :func:`lm_train_flops` is the cost of this port's
+    backward design, not a floor."""
+    pairs = b * s * (s + 1) // 2
+    return 6 * lm_matmul_params(cfg) * b * s + \
+        cfg.n_layers * 6 * 2 * cfg.n_heads * cfg.head_dim * pairs
+
+
+def peak_bytes(fn) -> int:
+    """Device bytes allocated at peak during ``fn`` above those live
+    before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def train_parity(configs, dev, seed: int) -> None:
+    """9A: one train step and one update of each optimizer, card against
+    CPU, every arch at reduced width, then reduced glm4-9b at S 2,048."""
+    from repro_torch.train import parity
+    log("A. train parity at reduced width, float32, the card against the "
+        "CPU (repro_torch.train.parity):")
+    cases = [(configs.reduced(configs.get_config(a)), 16)
+             for a in configs.ARCH_IDS]
+    cases.append((dataclasses.replace(
+        configs.reduced(configs.get_config("glm4-9b")), loss_chunk=1024,
+        remat="layer"), 2048))
+    for cfg, s in cases:
+        t0 = time.perf_counter()
+        try:
+            line = parity.check_train_card_matches_cpu(cfg, dev, seed=seed,
+                                                       s=s)
+        except AssertionError as e:
+            fail(f"train parity: {e}")
+        log(f"  {line} [{time.perf_counter() - t0:.3f} s]")
+
+
+def direct_attention(qg, k, v, q_pos, window: float) -> torch.Tensor:
+    """Softmax attention over the whole (S, T) score matrix, float32."""
+    from repro_torch.models.flash import _mask
+    t = k.shape[1]
+    k_pos = torch.arange(t, dtype=torch.float32, device=k.device)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k)
+    scores = scores + _mask(q_pos, k_pos, window,
+                            torch.zeros(t, device=k.device))
+    return torch.einsum("bkgst,btkd->bskgd", torch.softmax(scores, dim=-1),
+                        v)
+
+
+def flash_grad_check(dev, seed: int) -> None:
+    """9B: the flash backward at minicpm-2b's layer shape against autograd
+    of direct attention on the card."""
+    from repro_torch.models.flash import flash_attention
+    b, s, kvh, g, dh = FLASH_GRAD_SHAPE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    qg = torch.randn((b, s, kvh, g, dh), generator=gen, device=dev) * \
+        dh ** -0.5
+    k = torch.randn((b, s, kvh, dh), generator=gen, device=dev)
+    v = torch.randn((b, s, kvh, dh), generator=gen, device=dev)
+    dout = torch.randn((b, s, kvh, g, dh), generator=gen, device=dev)
+    q_pos = torch.arange(s, dtype=torch.float32, device=dev)
+    kbias = torch.zeros(s, dtype=torch.float32, device=dev)
+    log(f"B. the flash backward, qg {tuple(qg.shape)}, k/v "
+        f"{tuple(k.shape)}, chunk 1024, against autograd of direct "
+        "attention:")
+    for window in (0.0, 1024.0):
+        for dt in (torch.float32, torch.bfloat16):
+            ins = [x.to(dt) for x in (qg, k, v)]
+            d_in = dout.to(dt)
+
+            def flash():
+                leaves = [x.clone().requires_grad_() for x in ins]
+                out = flash_attention(*leaves, q_pos, kbias, window, 1024)
+                return torch.autograd.grad(out, leaves, d_in)
+
+            def direct():
+                leaves = [x.float().requires_grad_() for x in ins]
+                out = direct_attention(*leaves, q_pos, window)
+                return torch.autograd.grad(out, leaves, d_in.float())
+
+            got, want = flash(), direct()
+            errs = []
+            for name, a, r in zip(("dq", "dk", "dv"), got, want):
+                d = float((a.float() - r).abs().max())
+                ref = float(r.abs().max())
+                errs.append(f"{name} {d:.3e} / {ref:.3e}")
+                if not d <= FLASH_GRAD_TOL[dt] * ref:
+                    fail(f"flash backward ({dt}, window {window:g}): {name} "
+                         f"differs by {d} > {FLASH_GRAD_TOL[dt]} x {ref}")
+            del got, want
+            f_ms, d_ms = (time_ms(flash, 1, 3, False),
+                            time_ms(direct, 1, 3, False))
+            f_peak, d_peak = peak_bytes(flash), peak_bytes(direct)
+            log(f"  {str(dt)[6:]}, window {window:g}: max |d| / max |ref| "
+                f"{', '.join(errs)} (tolerance {FLASH_GRAD_TOL[dt]}); "
+                f"forward + backward flash {f_ms:.3f} ms, peak "
+                f"{f_peak} B; direct {d_ms:.3f} ms, peak {d_peak} B")
+
+
+def chunked_ce_check(lm, get_config, dev, seed: int) -> None:
+    """9C: ``chunked_ce`` at minicpm-2b's full vocabulary against the
+    unchunked loss on the card, float32."""
+    from repro_torch.models import layers as L
+    cfg = get_config(TRAIN_ARCH)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 2)
+    embed = torch.randn((cfg.padded_vocab, cfg.d_model), generator=gen,
+                        device=dev)
+    x = L.rms_norm(torch.randn((TRAIN_B, TRAIN_S, cfg.d_model),
+                               generator=gen, device=dev),
+                   torch.ones(cfg.d_model, device=dev), cfg.norm_eps)
+    labels = torch.randint(0, cfg.vocab, (TRAIN_B, TRAIN_S), generator=gen,
+                           device=dev)
+    labels[0, 5] = -1
+
+    def run(chunked: bool):
+        xs, e = x.clone().requires_grad_(), embed.clone().requires_grad_()
+        if chunked:
+            loss_sum, n = lm.chunked_ce(cfg, xs, e.T, labels, 1024)
+        else:
+            logits = lm._mask_pad_vocab(cfg, (xs @ e.T).float())
+            loss_sum, n = lm._ce_terms(cfg, logits, labels)
+        loss = loss_sum / n
+        return (loss.detach(), *torch.autograd.grad(loss, [xs, e]))
+
+    got, want = run(True), run(False)
+    loss_d = abs(float(got[0]) - float(want[0]))
+    errs = []
+    if not loss_d <= CE_TOL * max(1.0, abs(float(want[0]))):
+        fail(f"chunked_ce: loss {float(got[0])} against {float(want[0])}")
+    for name, a, r in zip(("x_final", "head"), got[1:], want[1:]):
+        d, ref = float((a - r).abs().max()), float(r.abs().max())
+        errs.append(f"d{name} {d:.3e} / {ref:.3e}")
+        if not d <= CE_TOL * ref:
+            fail(f"chunked_ce: the gradient of {name} differs by {d} > "
+                 f"{CE_TOL} x {ref}")
+    del got, want
+    c_ms = time_ms(lambda: run(True), 1, 3, False)
+    u_ms = time_ms(lambda: run(False), 1, 3, False)
+    c_peak, u_peak = peak_bytes(lambda: run(True)), \
+        peak_bytes(lambda: run(False))
+    log(f"C. chunked_ce, tied head {cfg.d_model} x {cfg.padded_vocab}, B "
+        f"{TRAIN_B} x S {TRAIN_S}, chunk 1024, float32: loss "
+        f"{float(run(True)[0]):.6f} (|d| {loss_d:.3e}), max |d| / max |ref| "
+        f"{', '.join(errs)} (tolerance {CE_TOL}); loss + backward chunked "
+        f"{c_ms:.3f} ms, peak {c_peak} B; unchunked {u_ms:.3f} ms, peak "
+        f"{u_peak} B")
+
+
+def train_full_width(lm, get_config, dev, seed: int, smi: str) -> None:
+    """9D: minicpm-2b at full width and depth in bf16, T1 (AdamW, 12
+    steps) and T2 (AdamW8, 4 steps) through the ``Trainer``."""
+    from torch.utils import _pytree as pytree
+    from repro_torch.data import TokenStore, synthetic_corpus, token_batches
+    from repro_torch.train import optimizer, parity
+    from repro_torch.train.trainer import (TrainConfig, Trainer,
+                                           make_train_step)
+    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    weights = lm_bytes(params)
+    log(f"D. {TRAIN_ARCH}: {lm.param_count(params)} parameters, {weights} B "
+        f"of bf16 weights drawn on the card in "
+        f"{time.perf_counter() - t0:.3f} s ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, remat {cfg.remat!r}, loss_chunk {cfg.loss_chunk})")
+    if weights != TRAIN_BYTES:
+        fail(f"{TRAIN_ARCH}: {weights} B of weights, not {TRAIN_BYTES}")
+    t0 = time.perf_counter()
+    store = TokenStore(synthetic_corpus(TRAIN_CORPUS, cfg.vocab, seed=seed),
+                       cfg.vocab)
+    log(f"  token store: {store.n} tokens, {store.bits}-bit codes, built in "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    def batches():
+        return token_batches(store, cfg, batch=TRAIN_B, seq=TRAIN_S,
+                             seed=seed, device=dev)
+
+    first = next(batches())
+    with torch.no_grad():
+        loss_bf16 = float(lm.train_loss(cfg, params, first)[0])
+        p32 = pytree.tree_map(lambda t: t.float(), params)
+        loss_f32 = float(lm.train_loss(
+            dataclasses.replace(cfg, dtype="float32"), p32, first)[0])
+        del p32
+    torch.cuda.empty_cache()
+    gap = abs(loss_bf16 - loss_f32)
+    log(f"  step 0's batch: train_loss {loss_bf16!r} in bf16, {loss_f32!r} "
+        f"with a float32 copy of the weights, |d| {gap!r} (tolerance "
+        f"{TRAIN_BF16_LOSS_TOL})")
+    if not gap <= TRAIN_BF16_LOSS_TOL:
+        fail(f"{TRAIN_ARCH}: bf16 loss {loss_bf16} is {gap} from the "
+             f"float32 loss {loss_f32} (tolerance {TRAIN_BF16_LOSS_TOL})")
+
+    bf16_ops, f32_ops = lm_train_flops(cfg, TRAIN_B, TRAIN_S)
+    bound = bf16_ops / BF16_OPS_PER_S + f32_ops / F32_OPS_PER_S
+    own_ops = lm_train_flops_causal(cfg, TRAIN_B, TRAIN_S)
+    own = own_ops / BF16_OPS_PER_S
+    runs = (("T1", "adamw", TRAIN_STEPS), ("T2", "adamw8", T2_STEPS))
+    adamw_bytes = 0
+    for name, opt_name, steps in runs:
+        opt = optimizer.OptConfig(name=opt_name, lr=TRAIN_LR)
+        train = TrainConfig(steps=steps, warmup=TRAIN_WARMUP, schedule="wsd",
+                            log_every=1, ckpt_every=0)
+        trainer = Trainer(cfg=cfg, opt=opt, train=train)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params, hist = trainer.fit(params, batches())
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        state_b = optimizer.state_bytes(trainer.opt_state)
+        log(f"  {name}: {TRAIN_ARCH} with {opt_name}, lr {TRAIN_LR} (wsd, "
+            f"warmup {TRAIN_WARMUP}), {steps} steps of B {TRAIN_B} x S "
+            f"{TRAIN_S} in {wall:.3f} s:")
+        for h in hist:
+            log(f"    step {h['step']}: loss {h['loss']!r}, grad norm "
+                f"{h['grad_norm']!r}, lr {h['lr']!r}, {h['dt'] * 1e3:.3f} ms")
+        bad = [h["step"] for h in hist if not (math.isfinite(h["loss"]) and
+                                               math.isfinite(h["grad_norm"]))]
+        if bad:
+            fail(f"{name}: non-finite loss or grad norm at steps {bad}")
+        if name == "T1":
+            adamw_bytes = state_b
+            if not hist[-1]["loss"] < hist[0]["loss"]:
+                fail(f"{name}: the loss at step {hist[-1]['step']} "
+                     f"({hist[-1]['loss']}) is not below step 0's "
+                     f"({hist[0]['loss']})")
+            step_s = statistics.median(h["dt"] for h in hist[2:])
+            log(f"    median step over steps 2-{steps - 1}: "
+                f"{step_s * 1e3:.3f} ms = "
+                f"{TRAIN_B * TRAIN_S / step_s:.1f} tok/s; bound "
+                f"{bound * 1e3:.3f} ms ({bf16_ops} bf16 ops at 989 TFLOP/s "
+                f"+ {f32_ops} float32 ops at 67 TFLOP/s), "
+                f"{bound / step_s:.4f} of it; the function's own bound "
+                f"{own * 1e3:.3f} ms ({own_ops} ops over the causal pairs, "
+                f"all bf16 at 989 TFLOP/s), {own / step_s:.4f} of it")
+            step_fn, _ = make_train_step(cfg, opt, train)
+            batch = next(batches())
+            state = trainer.opt_state
+            launches = count_launches(lambda: step_fn(params, state, batch,
+                                                      steps), top=8)
+            _, _, grads = parity.loss_and_grads(cfg, params, batch)
+            lr = torch.tensor(TRAIN_LR, dtype=torch.float32)
+            opt_ms = time_ms(lambda: optimizer.apply_updates(
+                opt, grads, state, params, lr), 1, 3, False)
+            del grads, state
+            log(f"    one more step: {launches}; the optimizer alone "
+                f"{opt_ms:.3f} ms a step")
+        log(f"    optimizer state {state_b} B"
+            + (f" ({state_b / adamw_bytes:.4f} of AdamW's {adamw_bytes} B)"
+               if name == "T2" else "")
+            + f"; max_memory_allocated {peak} B ({weights} B of weights)")
+        log(f"    card: {smi}")
+        del trainer
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+
+
+def lm_train_path(lm, configs, dev, seed: int, smi: str) -> None:
+    """Phase 9: LM training, every family at reduced width held to the
+    CPU, the flash backward and the chunked loss at minicpm-2b's shapes,
+    then minicpm-2b trained at full width and depth."""
+    train_parity(configs, dev, seed)
+    flash_grad_check(dev, seed)
+    chunked_ce_check(lm, configs.get_config, dev, seed)
+    train_full_width(lm, configs.get_config, dev, seed, smi)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3565,7 +3912,23 @@ def main() -> None:
         fail("the LM serving path launched a kernel it has no use for")
     log(f"phase 8 (LM serving) wall: {time.perf_counter() - phase_t0:.3f} s")
 
-    # -- 9. report ------------------------------------------------------------------
+    # -- 9. LM training -------------------------------------------------------------------
+    phase_t0 = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 matmuls are on: the training parity needs full float32")
+    for counter in counters:
+        counter.reset_launches()
+    log("LM training (no hand-written kernel on this path: cuBLAS products "
+        "and PyTorch ops; the launch counts must stay 0):")
+    lm_train_path(lm, configs, dev, args.seed, smi)
+    trained = {k: v for counter in counters
+               for k, v in counter.LAUNCHES.items()}
+    log(f"kernels launched on the LM training path: {trained}")
+    if any(trained.values()):
+        fail("the LM training path launched a kernel it has no use for")
+    log(f"phase 9 (LM training) wall: {time.perf_counter() - phase_t0:.3f} s")
+
+    # -- 10. report ------------------------------------------------------------------
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],

@@ -23,26 +23,14 @@ not fit one):
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import time
 
 import numpy as np
 
-from repro_torch.configs import get_config, reduced
+from repro_torch.configs import get_config
+from repro_torch.launch.train import preset_config
 from repro_torch.models import lm
 from repro_torch.serve import Request, ServeEngine
-
-
-def preset_config(cfg, preset: str):
-    if preset == "full":
-        return cfg
-    if preset == "smoke":
-        return reduced(cfg)
-    if preset == "small":          # ~15M params, trainable on 1 CPU core
-        return dataclasses.replace(
-            reduced(cfg), d_model=256, d_head=32, d_ff=512 if cfg.d_ff else 0,
-            vocab=4099, vocab_pad_multiple=64)
-    raise ValueError(preset)
 
 
 def main(argv=None):

@@ -1,13 +1,18 @@
-"""Flash attention, the forward: an online softmax over KV chunks, so the
-(S, T) score matrix is never held whole (O(S) memory per chunk of keys).
+"""Flash attention: an online softmax over KV chunks, so the (S, T) score
+matrix is never held whole (O(S) memory per chunk of keys), forward and
+backward.
 
 GQA layout: q (B,S,KV,G,dh) [pre-scaled], k/v (B,T,KV,dh). Masking inputs:
   q_pos (S,) float32 absolute query positions,
   kbias (T,) float32 additive key bias (0 valid / -1e30 beyond kv_len),
   window: a host float (<= 0 -> full causal).
 
-The backward (the reference's custom VJP, ``repro/models/flash.py:77-111``)
-comes with the training slice, as a ``torch.autograd.Function``.
+The backward is the reference's custom VJP (``repro/models/flash.py:
+72-113``) as a ``torch.autograd.Function``: the forward saves only its
+inputs and (out, m, l) per query, ``out`` the float32 accumulator before the
+cast; the backward recomputes each chunk's probabilities from (q, k, m, l)
+and accumulates dq, dk and dv chunk by chunk (the FlashAttention-2
+dataflow), so one chunk's (S, chunk) float32 work is live at a time.
 """
 from __future__ import annotations
 
@@ -55,9 +60,53 @@ def _fwd_scan(qg, k, v, q_pos, kbias, window: float, kv_chunk: int):
     return out.permute(0, 3, 1, 2, 4), m, l        # -> (B,S,KV,G,dh)
 
 
+class _Flash(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qg, k, v, q_pos, kbias, window: float, kv_chunk: int):
+        out, m, l = _fwd_scan(qg, k, v, q_pos, kbias, window, kv_chunk)
+        ctx.save_for_backward(qg, k, v, q_pos, kbias, out, m, l)
+        ctx.window, ctx.kv_chunk = window, kv_chunk
+        return out.to(qg.dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        qg, k, v, q_pos, kbias, out, m, l = ctx.saved_tensors
+        window, kv_chunk = ctx.window, ctx.kv_chunk
+        t = k.shape[1]
+        l_safe = torch.clamp(l, min=1e-30)
+        dout32 = dout.float()
+        q32 = qg.float()
+        # delta[b,k,g,s] = sum_d dout * out, from the float32 accumulator
+        delta = torch.einsum("bskgd,bskgd->bkgs", dout32, out)
+        dq = torch.zeros(qg.shape, dtype=torch.float32, device=qg.device)
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+        dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+        for c0 in range(0, t - t % kv_chunk, kv_chunk):
+            ks32 = k[:, c0:c0 + kv_chunk].float()
+            vs32 = v[:, c0:c0 + kv_chunk].float()
+            scores = torch.einsum("bskgd,btkd->bkgst", q32, ks32)
+            k_pos = torch.arange(c0, c0 + kv_chunk, dtype=torch.float32,
+                                 device=qg.device)
+            scores = scores + _mask(q_pos, k_pos, window,
+                                    kbias[c0:c0 + kv_chunk])
+            p = torch.exp(scores - m[..., None]) / l_safe[..., None]
+            p = torch.where(scores <= NEG_INF / 2, 0.0, p)
+            del scores
+            dv[:, c0:c0 + kv_chunk] = torch.einsum("bkgst,bskgd->btkd", p,
+                                                   dout32)
+            dp = torch.einsum("bskgd,btkd->bkgst", dout32, vs32)
+            ds = p * (dp - delta[..., None])
+            del p, dp
+            dq += torch.einsum("bkgst,btkd->bskgd", ds, ks32)
+            dk[:, c0:c0 + kv_chunk] = torch.einsum("bkgst,bskgd->btkd", ds,
+                                                   q32)
+        return (dq.to(qg.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None, None)
+
+
 def flash_attention(qg, k, v, q_pos, kbias, window: float,
                     kv_chunk: int) -> torch.Tensor:
     """qg (B,S,KV,G,dh) pre-scaled; k, v (B,T,KV,dh). Returns
-    (B,S,KV,G,dh) in qg's dtype."""
-    out, _, _ = _fwd_scan(qg, k, v, q_pos, kbias, window, kv_chunk)
-    return out.to(qg.dtype)
+    (B,S,KV,G,dh) in qg's dtype. Differentiable in qg, k and v; ``q_pos``,
+    ``kbias``, ``window`` and ``kv_chunk`` get no gradient."""
+    return _Flash.apply(qg, k, v, q_pos, kbias, window, kv_chunk)

@@ -11,7 +11,8 @@ decode.
 mLSTM's normalizer n_t = a_t n_{t-1} + k_t is carried as a separate
 (B,H,DK) state. The dtypes are the reference's, step by step: the inputs
 stay in their compute dtype (bfloat16 when served); the decay, the
-normalizer and the state accumulate in float32; a product the reference
+normalizer and the state accumulate in float32 (the intra-chunk decays as
+segment sums, not as differences of one cumsum); a product the reference
 asks for in float32 (``preferred_element_type``) is a float32 product of
 the upcast inputs (exact products; TF32 stays off); the decayed q and k
 round in the input dtype, and the intra-chunk scores round to the value
@@ -39,6 +40,7 @@ def chunked_gla(q, k, v, log_a, *, chunk: int = 256, normalizer: bool = False):
     nstate = q.new_zeros((b, h, dk), dtype=torch.float32)
     causal = torch.ones((chunk, chunk), dtype=torch.bool,
                         device=q.device).tril()
+    strict = causal.tril(-1)
     outs, n_outs = [], []
     for c0 in range(0, s, chunk):
         qi, ki = q[:, c0:c0 + chunk], k[:, c0:c0 + chunk]
@@ -52,7 +54,12 @@ def chunked_gla(q, k, v, log_a, *, chunk: int = 256, normalizer: bool = False):
         # where(), not a product with the mask: exp(dec) above the
         # diagonal can be inf
         scores = torch.einsum("bchk,buhk->bhcu", qi.float(), ki.float())
-        dec = cum[:, :, None, :] - cum[:, None, :, :]        # (B,C,U,H)
+        # dec[t,u] = the sum of la over (u, t], summed afresh from u+1
+        # for each u (the reference takes cum_t - cum_u): the same value,
+        # but its gradient sums only the steps between u and t, where the
+        # difference's gradient cancels the prefix both cumsums share
+        dec = torch.cumsum(torch.where(strict[None, :, :, None],
+                                       lai[:, :, None, :], 0.0), dim=1)
         w = torch.where(causal[None, :, :, None], torch.exp(dec), 0.0)
         scores = scores * w.permute(0, 3, 1, 2)
         o_intra = torch.einsum("bhcu,buhv->bchv",

@@ -6,6 +6,9 @@ Public surface:
   param_specs(cfg)                              the same on ``meta`` (no memory)
   params_from_reference(params, device)         the reference's pytree -> tensors
   forward(cfg, params, batch, caches)           logits, aux, new_caches
+  forward_hidden(cfg, params, batch)            x_final, (aux, z)
+  train_loss(cfg, params, batch)                scalar loss + metrics
+  chunked_ce(cfg, x_final, head, labels, chunk) recomputed-logits CE
   init_serve_state(cfg, B, max_len, device, enc_len=0)  zeroed caches
   prefill / decode_step(cfg, params, state, ..) serve steps
 
@@ -14,15 +17,25 @@ Every family of the reference: ``dense``, ``vlm``, ``moe``, ``ssm``
 heads) and ``audio`` (an encoder over the batch's ``frames``, whose
 output, ``memory``, the decoder's cross-attention reads; a serve state
 keeps it after prefill). A MoE layer's load-balance and z losses are
-summed over the stack, as the reference sums them. Training
-(``train_loss``, ``chunked_ce``, the flash backward) comes with the
-training slice.
+summed over the stack, as the reference sums them.
+
+Training differentiates ``train_loss`` with autograd. Without a cache the
+stack honours ``cfg.remat`` as the reference's ``jax.checkpoint`` does:
+``"layer"`` recomputes each group's body in the backward, ``"dots"`` keeps
+only the outputs of products without batch dimensions (``aten.mm``), and
+``"none"`` keeps everything. The loss past ``cfg.loss_chunk`` tokens is
+:func:`chunked_ce`, which recomputes each chunk's float32 logits in the
+backward, so the (B, S, V) logits are never held.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 from torch.utils import _pytree as pytree
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.core.pipeline import resolve_device
 from repro_torch.models import layers as L
@@ -182,18 +195,50 @@ def run_stack(cfg: ModelConfig, params_blocks, metas, x, *, caches=None,
     t = s if caches is None else _cache_keys(caches[0], s)
     ctx = StepContext(cfg, s, t, pos, None if caches is None else pos + s,
                       x.device)
-    aux = z = 0.0
-    for gi in range(g):
+
+    def group(x, gi, params, memory):
+        losses = []
         for j, kind in enumerate(pat):
             meta = {k: v[gi] for k, v in metas[j].items()}
             kw = {"memory": memory} if kind == "xdec" else {}
-            x, _, (a, zz) = APPLY[kind](
-                cfg, gp[j][gi], meta, x,
+            x, _, az = APPLY[kind](
+                cfg, params[j], meta, x,
                 cache=None if gc is None else gc[j][gi], pos=pos, ctx=ctx,
                 **kw)
+            losses.append(az)
+        return x, losses
+
+    remat = cfg.remat if caches is None and torch.is_grad_enabled() and \
+        any(isinstance(t, torch.Tensor) and t.requires_grad
+            for t in pytree.tree_leaves((x, params_blocks, memory))) \
+        else "none"
+    aux = z = 0.0
+    for gi in range(g):
+        args = (x, gi, [p[gi] for p in gp], memory)
+        if remat == "layer":
+            x, losses = checkpoint(group, *args, use_reentrant=False)
+        elif remat == "dots":
+            x, losses = checkpoint(group, *args, use_reentrant=False,
+                                   context_fn=_DOTS_CONTEXT)
+        else:
+            x, losses = group(*args)
+        for a, zz in losses:          # summed layer by layer, as before
             aux = aux + a
             z = z + zz
     return x, aux, z, caches
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: keep
+    the outputs of products without batch dimensions (``x @ W`` reaches
+    ``aten.mm``), recompute the rest."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts,
+                                  _dots_policy)
 
 
 # =====================================================================
@@ -236,6 +281,12 @@ def _hidden(cfg: ModelConfig, params, batch, caches):
     return x, (aux, z), new_caches
 
 
+def forward_hidden(cfg: ModelConfig, params, batch):
+    """The trunk without a cache: (x_final (B,S,D), (aux, z))."""
+    x, auxz, _ = _hidden(cfg, params, batch, None)
+    return x, auxz
+
+
 def forward(cfg: ModelConfig, params, batch, caches=None):
     """batch: dict with 'tokens' (B,S) int; vlm: + 'patch_embeds'
     (B,P,frontend_dim); audio: + 'frames' (B,S_enc,frontend_dim), which a
@@ -256,6 +307,72 @@ def _mask_pad_vocab(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
             cfg.vocab
         logits = torch.where(vmask, logits, NEG_INF)
     return logits
+
+
+# =====================================================================
+# training loss
+# =====================================================================
+def _ce_terms(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor):
+    """(sum of CE over valid labels, count of valid labels); labels < 0
+    are masked."""
+    valid = labels >= 0
+    safe = torch.where(valid, labels, 0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, safe[..., None])[..., 0]
+    ce = torch.where(valid, logz - gold, 0.0)
+    return ce.sum(), valid.sum()
+
+
+def _chunk_ce(cfg: ModelConfig, xs, head, ls):
+    logits = _mask_pad_vocab(cfg, (xs @ head).float())
+    return _ce_terms(cfg, logits, ls)
+
+
+def chunked_ce(cfg: ModelConfig, x_final: torch.Tensor, head: torch.Tensor,
+               labels: torch.Tensor, chunk: int):
+    """Sequence-chunked, checkpointed CE: the (B, chunk, V) float32 logits
+    block is the only logits liveness, and the backward recomputes each
+    block's logits (``torch.utils.checkpoint``, as the reference's
+    ``jax.checkpoint``). Chunks are summed in ascending order from zero.
+    Returns (loss_sum, count)."""
+    s = x_final.shape[1]
+    loss_sum = torch.zeros((), dtype=torch.float32, device=x_final.device)
+    cnt = torch.zeros((), dtype=torch.int64, device=x_final.device)
+    for c0 in range(0, s - s % chunk, chunk):
+        args = (cfg, x_final[:, c0:c0 + chunk], head,
+                labels[:, c0:c0 + chunk])
+        if torch.is_grad_enabled():
+            c_sum, c_cnt = checkpoint(_chunk_ce, *args, use_reentrant=False)
+        else:
+            c_sum, c_cnt = _chunk_ce(*args)
+        loss_sum = loss_sum + c_sum
+        cnt = cnt + c_cnt
+    return loss_sum, cnt
+
+
+def train_loss(cfg: ModelConfig, params, batch):
+    """Cross-entropy over valid labels (labels < 0 are masked), plus a MoE
+    stack's ``router_aux_coef * aux + router_z_coef * z``. Returns (loss,
+    {"ce", "aux", "z", "tokens"}), each a 0-d tensor."""
+    x_final, (aux, z) = forward_hidden(cfg, params, batch)
+    head = params.get("head")
+    if head is None:
+        head = params["embed"].T
+    labels = batch["labels"]
+    s = labels.shape[1]
+    if cfg.loss_chunk and s % cfg.loss_chunk == 0 and s > cfg.loss_chunk:
+        loss_sum, n_valid = chunked_ce(cfg, x_final, head, labels,
+                                       cfg.loss_chunk)
+    else:
+        logits = _mask_pad_vocab(cfg, (x_final @ head).float())
+        loss_sum, n_valid = _ce_terms(cfg, logits, labels)
+    n_valid = torch.clamp(n_valid, min=1)
+    loss = loss_sum / n_valid
+    dev = loss.device
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=dev)
+    z = torch.as_tensor(z, dtype=torch.float32, device=dev)
+    total = loss + cfg.router_aux_coef * aux + cfg.router_z_coef * z
+    return total, {"ce": loss, "aux": aux, "z": z, "tokens": n_valid}
 
 
 # =====================================================================

@@ -1,14 +1,19 @@
-"""Fault tolerance: straggler detection.
+"""Fault tolerance: straggler detection, elastic re-mesh planning and the
+fault log.
 
-Slow hosts and slow launches (stragglers) amplify tail latency. The
-detector here is pure host-side logic, unit-testable without hardware; the
-serving pump feeds it launch round-trip times
-(:mod:`repro_torch.serve.feature_service`). Elastic re-mesh planning and
-the fault log come with the training stack.
+Slow hosts and slow launches (stragglers) amplify tail latency, and lost
+hosts need a smaller mesh and a restore from a checkpoint. Everything here
+is pure host-side logic, unit-testable without hardware: the serving pump
+feeds the detector launch round-trip times
+(:mod:`repro_torch.serve.feature_service`), the trainer its step times
+(:mod:`repro_torch.train.trainer`), and the trainer records restarts and
+stragglers in a :class:`FaultLog`. :func:`plan_elastic_mesh` plans the
+mesh a restore would move onto; moving onto it is not ported.
 """
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass, field
 
 
 class StragglerDetector:
@@ -61,3 +66,54 @@ class StragglerDetector:
         healthy-latency work; before any observation the floor IS the
         cutoff."""
         return max(floor, factor * (self.mean or 0.0))
+
+
+@dataclass
+class MeshPlan:
+    shape: tuple[int, ...]
+    axes: tuple[str, ...]
+    n_devices: int
+
+
+def plan_elastic_mesh(n_available: int, *, model_parallel: int,
+                      multi_pod: bool = False,
+                      pod_size: int = 256) -> MeshPlan:
+    """Largest (pod ×) data × model mesh that fits the surviving devices.
+
+    Invariants: 'model' stays fixed (param sharding must not change — only
+    data parallelism shrinks, so reshard-from-checkpoint touches batch
+    sharding only); data axis is the largest divisor that fits.
+    """
+    if n_available < model_parallel:
+        raise ValueError(f"need >= {model_parallel} devices for the model "
+                         f"axis, have {n_available}")
+    if multi_pod and n_available >= 2 * pod_size:
+        pods = n_available // pod_size
+        data = pod_size // model_parallel
+        return MeshPlan((pods, data, model_parallel),
+                        ("pod", "data", "model"),
+                        pods * data * model_parallel)
+    data = n_available // model_parallel
+    return MeshPlan((data, model_parallel), ("data", "model"),
+                    data * model_parallel)
+
+
+@dataclass
+class FaultEvent:
+    step: int
+    kind: str                    # 'straggler' | 'device_loss' | 'restart'
+    detail: str = ""
+
+
+@dataclass
+class FaultLog:
+    events: list[FaultEvent] = field(default_factory=list)
+
+    def record(self, step: int, kind: str, detail: str = ""):
+        self.events.append(FaultEvent(step, kind, detail))
+
+    def summary(self) -> dict:
+        out: dict[str, int] = {}
+        for e in self.events:
+            out[e.kind] = out.get(e.kind, 0) + 1
+        return out

@@ -7,7 +7,12 @@ every launch), the Table 6 path's bit-unpack, counts and single-table
 gather, a front door serving through the gathers with a retried
 fault, and sharded serving with its shards on streams of cuda:0 (bit-exact
 against the CPU, a refresh and a replica drop while launches wait on other
-streams, a pool naming another card refused).
+streams, a pool naming another card refused). The LM training path (no
+hand-written kernel: cuBLAS products and PyTorch ops): one train step and
+each optimizer's update on the card against the CPU for a dense, a MoE, an
+ssm and an audio arch (``train.parity``), the flash backward against
+direct attention, a checkpointed ``Trainer`` run resumed on the card, and
+the training entry points on ``cuda`` when no device is named.
 
 Needs a CUDA device and ``nvcc`` (the kernels build at first use); every
 test skips without a card. Imports neither JAX nor the reference package,
@@ -906,3 +911,120 @@ def test_lm_entry_points_default_to_the_card(cuda):
     assert lm.init_serve_state(cfg, 1, 8)["blocks"][0]["k"].is_cuda
     assert ServeEngine(cfg, params, batch_size=1, max_len=8).device.type \
         == "cuda"
+
+
+# -- LM training ---------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["glm4-9b", "moonshot-v1-16b-a3b",
+                                  "xlstm-1.3b", "seamless-m4t-large-v2"])
+def test_train_step_on_card_matches_cpu(cuda, arch):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.train import parity
+    for seed in range(2):
+        parity.check_train_card_matches_cpu(reduced(get_config(arch)), cuda,
+                                            seed=seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0.0, 1024.0])
+def test_flash_backward_on_card_matches_direct(cuda, window, dtype):
+    """dq, dk, dv of the flash Function against autograd of direct softmax
+    attention over the same values in float32 (chip_smoke's phase 9B
+    bounds: 1e-4 of max |reference| in float32, 1e-2 in bf16)."""
+    from repro_torch.models.flash import _mask, flash_attention
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    b, s, kvh, g, dh = 2, 2048, 4, 2, 64
+    ins = [torch.randn(shape, generator=gen, device=cuda).to(dtype)
+           for shape in ((b, s, kvh, g, dh), (b, s, kvh, dh),
+                         (b, s, kvh, dh))]
+    ins[0] = ins[0] * dh ** -0.5
+    dout = torch.randn((b, s, kvh, g, dh), generator=gen,
+                       device=cuda).to(dtype)
+    q_pos = torch.arange(s, dtype=torch.float32, device=cuda)
+    kbias = torch.zeros(s, device=cuda)
+    leaves = [x.clone().requires_grad_() for x in ins]
+    out = flash_attention(*leaves, q_pos, kbias, window, 1024)
+    got = torch.autograd.grad(out, leaves, dout)
+    ref = [x.float().requires_grad_() for x in ins]
+    scores = torch.einsum("bskgd,btkd->bkgst", ref[0], ref[1]) + \
+        _mask(q_pos, q_pos, window, kbias)
+    out = torch.einsum("bkgst,btkd->bskgd", torch.softmax(scores, dim=-1),
+                       ref[2])
+    want = torch.autograd.grad(out, ref, dout.float())
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for a, r in zip(got, want):
+        assert a.is_cuda and a.dtype == dtype
+        assert float((a.float() - r).abs().max()) <= \
+            tol * float(r.abs().max())
+
+
+def _train_setup(device=None):
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import TokenStore, synthetic_corpus
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(reduced(get_config("qwen2-7b")), vocab=512,
+                              vocab_pad_multiple=64)
+    store = TokenStore(synthetic_corpus(60_000, cfg.vocab), cfg.vocab)
+    return cfg, lm.init_params(cfg, 0, device=device), store
+
+
+@pytest.mark.cuda
+def test_trainer_checkpoint_resume_on_card(cuda, tmp_path):
+    """16 uninterrupted steps against 8, a checkpoint, and a new Trainer
+    resumed from it for the other 8 (a constant lr, so the two runs' steps
+    are the same): the resumed losses within 1e-5 relative of the
+    uninterrupted run's."""
+    import copy
+    from repro_torch.data import token_batches
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    def trainer(steps, ckpt_dir=""):
+        return Trainer(cfg=cfg, opt=OptConfig(lr=1e-2),
+                       train=TrainConfig(steps=steps, warmup=2,
+                                         schedule="constant", log_every=1,
+                                         ckpt_every=8, ckpt_dir=ckpt_dir))
+
+    cfg, params, store = _train_setup(cuda)
+    _, whole = trainer(16).fit(copy.deepcopy(params),
+                               token_batches(store, cfg, batch=8, seq=16))
+    _, first = trainer(8, str(tmp_path)).fit(
+        params, token_batches(store, cfg, batch=8, seq=16))
+    assert ck.latest_steps(str(tmp_path)) == [8]
+    resumed_t = trainer(16, str(tmp_path))
+    fresh = _train_setup(cuda)[1]
+    params2, resumed = resumed_t.fit(
+        fresh, token_batches(store, cfg, batch=8, seq=16, start_step=8))
+    assert resumed_t.fault_log.summary() == {"restart": 1}
+    assert params2["embed"].is_cuda
+    assert [h["step"] for h in resumed] == list(range(8, 16))
+    for a, b in zip(resumed, whole[8:]):
+        assert abs(a["loss"] - b["loss"]) <= 1e-5 * abs(b["loss"]), (a, b)
+    assert [h["loss"] for h in first] == pytest.approx(
+        [h["loss"] for h in whole[:8]], rel=1e-5)
+
+
+@pytest.mark.cuda
+def test_training_entry_points_default_to_the_card(cuda, capsys):
+    from repro_torch.data import token_batches
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    cfg, params, store = _train_setup()
+    assert params["embed"].is_cuda
+    t = Trainer(cfg=cfg, opt=OptConfig(name="adamw8", lr=1e-2),
+                train=TrainConfig(steps=3, warmup=1, log_every=1,
+                                  ckpt_every=0))
+    params, hist = t.fit(params, token_batches(store, cfg, batch=2, seq=16))
+    assert len(hist) == 3 and all(v.is_cuda for v in params["blocks"][0][
+        "attn"].values())
+    assert t.opt_state["v"]["embed"].is_cuda
+    history = launch_train.main(["--arch", "qwen2-7b", "--preset", "smoke",
+                                 "--steps", "8", "--batch", "4", "--seq",
+                                 "16"])
+    assert "on cuda" in capsys.readouterr().out
+    assert history[-1]["loss"] < history[0]["loss"]
