@@ -239,7 +239,7 @@ checkout's sources (into build/torch_ext/) and needs one card. Phases:
    ``configs.ARCH_IDS`` at ``reduced()`` in float32, B 2 x S 16: one
    ``train_loss`` step on the card against the CPU (loss within 1e-5 x
    max(1, loss), each gradient leaf within rtol 1e-4 / atol 1e-5 x its CPU
-   std, xlstm 1e-3, maverick and hymba 3e-5), then one ``apply_updates``
+   std, xlstm 1e-3, maverick 3e-5, hymba 1e-4), then one ``apply_updates``
    of each optimizer from the CPU's gradients and state (rtol 1e-6 / atol
    1e-8, AdamW8 at most 8 int8 codes a leaf one apart); then reduced
    glm4-9b at S 2,048 with ``loss_chunk`` 1,024 and ``remat="layer"`` (the flash
@@ -264,7 +264,27 @@ checkout's sources (into build/torch_ext/) and needs one card. Phases:
    (``lm_train_flops_causal``), host calls and device time of one more
    step, the optimizer's ms, peak memory; T2, the same model with AdamW8
    for 4 steps, its state's bytes beside AdamW's, peak memory.
-10. report — one JSON line per the kernel table, the nvidia-smi line, and
+10. dry-run and model sharding — launch counts set to 0 again (no
+   hand-written kernel runs here; the counts must stay 0), TF32 off. A: a
+   one-rank NCCL mesh, (1, 1) ("data", "model") on cuda:0: every arch at
+   ``reduced()`` in float32, 2 AdamW steps of B 2 x S 16 through
+   ``make_train_step(mesh=)`` against 2 meshless steps from the same
+   init, the losses and every parameter bit for bit; then minicpm-2b at
+   full width and depth in bf16 on T1's first batch, ``loss_and_grads``
+   twice meshless and once on the mesh, the mesh's loss and each gradient
+   leaf no further from the first meshless run than the second is; both
+   steps' ms and host calls printed. B: ``launch.dryrun``'s trace of
+   minicpm-2b's T1 step (2 x 2,048, AdamW, remat "layer") on that mesh
+   against the same step run for real with its parameters and state
+   resident: FLOPs equal to ``FlopCounterMode``'s count exactly, the
+   predicted peak within [0.85, 1.15] of ``max_memory_allocated``. C:
+   under a fake process group of 256 ranks on cuda:0, rank 0's share of
+   glm4-9b ``train_4k`` on the (32, 8) production mesh run for real (its
+   collectives move nothing; glm4-9b ``prefill_32k`` instead where the
+   prediction passes 72 GB): FLOPs equal to the trace's exactly, peak
+   within [0.85, 1.15] of the prediction, its ms beside the roofline's
+   compute and memory terms (H100 published figures).
+11. report — one JSON line per the kernel table, the nvidia-smi line, and
    last ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits nonzero before the last line. Without CUDA, or
@@ -3561,6 +3581,251 @@ def lm_train_path(lm, configs, dev, seed: int, smi: str) -> None:
     train_full_width(lm, configs.get_config, dev, seed, smi)
 
 
+MESH_B, MESH_S = 2, 16                     # 10A's reduced steps
+DRY_SHAPE = ("t1", TRAIN_S, TRAIN_B, "train")   # minicpm-2b's T1 step
+DRY_PEAK_BAND = (0.85, 1.15)       # measured peak / predicted, B and C
+SHARE_ARCH, SHARE_SHAPE, SHARE_WORLD = "glm4-9b", "train_4k", 256
+SHARE_LIMIT = 72e9                 # else C takes glm4-9b prefill_32k
+
+
+def one_rank_mesh(dev, path: str):
+    """A (1, 1) ("data", "model") mesh over a one-rank process group on
+    ``dev`` (NCCL on the card, gloo on the CPU), met through a file."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            store=dist.FileStore(path, 1), rank=0,
+                            world_size=1)
+    return init_device_mesh(dev.type, (1, 1),
+                            mesh_dim_names=("data", "model"))
+
+
+def full_leaves(tree) -> list:
+    from torch.utils import _pytree as pytree
+    return [t.full_tensor() if hasattr(t, "full_tensor") else t
+            for t in pytree.tree_leaves(tree)]
+
+
+def mesh_matches_meshless(configs, mesh, dev, seed: int) -> None:
+    """10A, reduced: every arch, float32, 2 AdamW steps of B 2 x S 16
+    through ``make_train_step(mesh=)`` against 2 meshless steps from the
+    same init: the losses and every parameter bit for bit."""
+    from repro_torch.models import lm
+    from repro_torch.train import parity
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.trainer import TrainConfig, make_train_step
+    opt = OptConfig(name="adamw", lr=1e-2)
+    train = TrainConfig(steps=4, warmup=1)
+    for arch in configs.ARCH_IDS:
+        cfg = configs.reduced(configs.get_config(arch))
+        rng = np.random.default_rng(seed)
+        batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                    parity.train_batch(cfg, rng, MESH_B, MESH_S).items()}
+                   for _ in range(2)]
+        runs = []
+        t0 = time.perf_counter()
+        for m in (None, mesh):
+            params = lm.init_params(cfg, seed, device=dev)
+            state = init_opt_state(opt, params)
+            step, _ = make_train_step(cfg, opt, train, mesh=m)
+            losses = []
+            for i, b in enumerate(batches):
+                params, state, met = step(params, state, b, i)
+                losses.append(met["loss"])
+            runs.append((losses, full_leaves(params)))
+        (l0, p0), (l1, p1) = runs
+        same = [torch.equal(a, b) for a, b in zip(p0, p1)]
+        log(f"  {arch}: losses {[float(x) for x in l0]} meshless, "
+            f"{[float(x) for x in l1]} on the mesh; {sum(same)} of "
+            f"{len(same)} parameters equal [{time.perf_counter() - t0:.3f}"
+            " s]")
+        if not (all(torch.equal(a, b) for a, b in zip(l0, l1)) and
+                all(same)):
+            fail(f"10A: {arch} on the one-rank mesh differs from its "
+                 "meshless steps")
+
+
+def mesh_full_width(lm, configs, mesh, dev, seed: int) -> None:
+    """10A, minicpm-2b at full width and depth in bf16 on T1's first batch:
+    ``loss_and_grads`` twice meshless and once on the mesh, from the same
+    parameters. The mesh's loss and each gradient leaf within the second
+    meshless run's distance from the first (bit for bit where the
+    meshless run repeats itself)."""
+    from repro_torch.data import TokenStore, synthetic_corpus, token_batches
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.context import activation_mesh
+    from repro_torch.train.trainer import loss_and_grads
+    cfg = configs.get_config(TRAIN_ARCH)
+    params = lm.init_params(cfg, seed, device=dev)
+    store = TokenStore(synthetic_corpus(TRAIN_CORPUS, cfg.vocab, seed=seed),
+                       cfg.vocab)
+    batch = next(token_batches(store, cfg, batch=TRAIN_B, seq=TRAIN_S,
+                               seed=seed, device=dev))
+
+    def run(p, b, m=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with activation_mesh(m):
+            out = loss_and_grads(cfg, p, b)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    (l1, _, g1), ms1 = run(params, batch)
+    (l2, _, g2), _ = run(params, batch)
+    g1, g2 = full_leaves(g1), full_leaves(g2)
+    noise = [float((a.float() - b.float()).abs().max())
+             for a, b in zip(g1, g2)]
+    del g2
+    dp = shd.distribute(params, shd.param_pspecs(cfg, params, mesh), mesh)
+    db = shd.distribute(batch, shd.batch_pspecs(cfg, batch, mesh), mesh)
+    (l3, _, g3), ms3 = run(dp, db, mesh)
+    l3 = l3.full_tensor()
+    worse = []
+    for i, (a, b) in enumerate(zip(g1, full_leaves(g3))):
+        d = float((a.float() - b.float()).abs().max())
+        if d > noise[i]:
+            worse.append((i, d, noise[i]))
+    calls = {}
+    for name, fn in (("meshless", lambda: loss_and_grads(cfg, params,
+                                                         batch)),
+                     ("mesh", lambda: run(dp, db, mesh))):
+        calls[name] = count_launches(fn)
+    log(f"  {TRAIN_ARCH} full width, bf16, B {TRAIN_B} x S {TRAIN_S}: loss "
+        f"{float(l1)!r} meshless ({float(l2)!r} again), {float(l3)!r} on "
+        f"the mesh; {len(g1) - len(worse)} of {len(g1)} gradient leaves "
+        f"within the meshless runs' own distance (largest "
+        f"{max(noise)!r}); step {ms1:.3f} ms meshless ({calls['meshless']}"
+        f"), {ms3:.3f} ms on the mesh ({calls['mesh']})")
+    if abs(float(l3) - float(l1)) > abs(float(l2) - float(l1)) or worse:
+        fail(f"10A: {TRAIN_ARCH} on the mesh: loss {float(l3)} against "
+             f"{float(l1)}/{float(l2)}; leaves past the meshless noise "
+             f"(index, |d|, noise): {worse[:5]}")
+    del g1, g3, dp, params
+    torch.cuda.empty_cache()
+
+
+def dryrun_against_card(configs, mesh, dev, seed: int) -> None:
+    """10B: the dry-run's trace of minicpm-2b's T1 step on the one-rank
+    mesh against the same step run for real: FLOPs equal to
+    ``FlopCounterMode``'s count exactly, the predicted peak within
+    ``DRY_PEAK_BAND`` of ``max_memory_allocated``."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.distributed.context import activation_mesh
+    from repro_torch.launch import dryrun
+    cfg = configs.get_config(TRAIN_ARCH)
+    shape = configs.ShapeSpec(*DRY_SHAPE)
+    pred = dryrun.trace_cell(cfg, shape, mesh, device=dev.type)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    step, args = dryrun.build_cell(cfg, shape, mesh, dev.type)
+    dryrun.fill(args, cfg, seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with FlopCounterMode(display=False) as fc, activation_mesh(mesh), \
+            dryrun.step_context(shape.kind):
+        out = step(*args)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - base
+    flops = fc.get_total_flops()
+    ratio = peak / pred["memory"]["peak_bytes"]
+    log(f"  B. {TRAIN_ARCH} T1 ({shape.global_batch} x {shape.seq_len}, "
+        f"AdamW, remat {cfg.remat!r}) on the one-rank mesh: trace "
+        f"{pred['flops']!r} FLOPs, {pred['bytes_accessed']!r} B accessed, "
+        f"peak {pred['memory']['peak_bytes']} B predicted "
+        f"({pred['memory']}) [trace {pred['times']['trace_s']:.3f} s]; "
+        f"the step for real: {flops!r} FLOPs (FlopCounterMode), "
+        f"max_memory_allocated {peak} B above the {base} B before, "
+        f"{ratio:.4f} of the prediction, {wall:.3f} ms under the counter")
+    del out, args, step
+    torch.cuda.empty_cache()
+    if flops != pred["flops"]:
+        fail(f"10B: the trace counts {pred['flops']} FLOPs, the card's step "
+             f"{flops}")
+    if not DRY_PEAK_BAND[0] <= ratio <= DRY_PEAK_BAND[1]:
+        fail(f"10B: peak {peak} B is {ratio:.4f} of the predicted "
+             f"{pred['memory']['peak_bytes']} B (band {DRY_PEAK_BAND})")
+
+
+def production_share(configs, dev, seed: int) -> None:
+    """10C: rank 0's share of a production cell run for real on the card,
+    under a fake process group of 256 ranks (its collectives move
+    nothing, so its values are not checked): FLOPs equal to the dry-run's
+    trace exactly, peak within ``DRY_PEAK_BAND`` of its prediction, and
+    the share's ms beside the roofline's compute and memory terms."""
+    from repro_torch.distributed.context import activation_mesh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_world, make_production_mesh
+    cfg = configs.get_config(SHARE_ARCH)
+    name = SHARE_SHAPE
+    with fake_world(SHARE_WORLD):
+        mesh = make_production_mesh(device_type=dev.type)
+        pred = dryrun.trace_cell(cfg, configs.SHAPES[name], mesh,
+                                 device=dev.type)
+        if pred["memory"]["peak_bytes"] > SHARE_LIMIT:
+            name = "prefill_32k"
+            pred = dryrun.trace_cell(cfg, configs.SHAPES[name], mesh,
+                                     device=dev.type)
+        shape = configs.SHAPES[name]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        step, args = dryrun.build_cell(cfg, shape, mesh, dev.type)
+        dryrun.fill(args, cfg, seed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tr = dryrun.StepTrace(dryrun.mesh_groups(mesh))
+        with activation_mesh(mesh), dryrun.step_context(shape.kind), tr:
+            out = step(*args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        del out
+        t0 = time.perf_counter()
+        with activation_mesh(mesh), dryrun.step_context(shape.kind):
+            out = step(*args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        del out, args, step
+        torch.cuda.empty_cache()
+    nvlink, net = dryrun.link_bytes(pred["collectives"]["axis_bytes"])
+    roof = dryrun.roofline_terms(pred["flops"], pred["bytes_accessed"],
+                                 nvlink, 1, net)
+    ratio = peak / pred["memory"]["peak_bytes"]
+    log(f"  C. {SHARE_ARCH} {name} on (32, 8), rank 0's share on the card: "
+        f"{tr.flops!r} FLOPs ({pred['flops']!r} traced), peak {peak} B "
+        f"({pred['memory']['peak_bytes']} B predicted, {ratio:.4f} of it), "
+        f"collectives {pred['collectives']['axis_bytes']} B by axis "
+        f"(moving nothing here); the step {ms:.3f} ms against the "
+        f"roofline's compute {roof['compute_s'] * 1e3:.3f} ms and memory "
+        f"{roof['memory_s'] * 1e3:.3f} ms (H100 published figures) "
+        f"[trace {pred['times']['trace_s']:.3f} s]")
+    if tr.flops != pred["flops"]:
+        fail(f"10C: the share runs {tr.flops} FLOPs, the trace counts "
+             f"{pred['flops']}")
+    if not DRY_PEAK_BAND[0] <= ratio <= DRY_PEAK_BAND[1]:
+        fail(f"10C: peak {peak} B is {ratio:.4f} of the predicted "
+             f"{pred['memory']['peak_bytes']} B (band {DRY_PEAK_BAND})")
+
+
+def mesh_path(lm, configs, dev, seed: int) -> None:
+    """Phase 10: the one-rank mesh against no mesh (A), the dry-run against
+    the card (B), a production cell's share on the card (C)."""
+    import tempfile
+    import torch.distributed as dist
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = one_rank_mesh(dev, str(Path(tmp) / "store"))
+        try:
+            log("A. a one-rank mesh on the card against no mesh:")
+            mesh_matches_meshless(configs, mesh, dev, seed)
+            mesh_full_width(lm, configs, mesh, dev, seed)
+            dryrun_against_card(configs, mesh, dev, seed)
+        finally:
+            dist.destroy_process_group()
+    production_share(configs, dev, seed)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3928,7 +4193,24 @@ def main() -> None:
         fail("the LM training path launched a kernel it has no use for")
     log(f"phase 9 (LM training) wall: {time.perf_counter() - phase_t0:.3f} s")
 
-    # -- 10. report ------------------------------------------------------------------
+    # -- 10. dry-run and model sharding -------------------------------------------------
+    phase_t0 = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 matmuls are on: the mesh parity needs full float32")
+    for counter in counters:
+        counter.reset_launches()
+    log("dry-run and model sharding (no hand-written kernel on this path; "
+        "the launch counts must stay 0):")
+    mesh_path(lm, configs, dev, args.seed)
+    sharded = {k: v for counter in counters
+               for k, v in counter.LAUNCHES.items()}
+    log(f"kernels launched on the sharding path: {sharded}")
+    if any(sharded.values()):
+        fail("the sharding path launched a kernel it has no use for")
+    log(f"phase 10 (dry-run and model sharding) wall: "
+        f"{time.perf_counter() - phase_t0:.3f} s")
+
+    # -- 11. report ------------------------------------------------------------------
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],

@@ -28,7 +28,11 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.context import (local_call, residual_add,
+                                             seq_whole)
+from repro_torch.distributed.sharding import local_range
 from repro_torch.models import layers as L
 from repro_torch.models import moe
 from repro_torch.models.attention import (attention, attention_mask,
@@ -36,6 +40,51 @@ from repro_torch.models.attention import (attention, attention_mask,
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.flash import flash_attention
 from repro_torch.models.gla import chunked_gla, gla_step
+
+
+# local_call's (batch dim, head dim) of an activation (B,S,H,...) and of a
+# recurrent state (B,H,...)
+SEQ_HEADS, STATE_HEADS = (0, 2), (0, 1)
+
+
+def _split_heads(t: torch.Tensor, *shape) -> torch.Tensor:
+    """``t.reshape(*shape)``, the last dim split into (heads, head dim). A
+    DTensor whose last dim is split over mesh axes that do not divide the
+    heads is gathered along it first."""
+    if isinstance(t, DTensor):
+        from torch.distributed.tensor import Replicate, Shard
+        pl = [Replicate() if isinstance(p, Shard) and p.dim == t.ndim - 1
+              and shape[-2] % n else p
+              for p, n in zip(t.placements, t.device_mesh.shape)]
+        if pl != list(t.placements):
+            t = t.redistribute(t.device_mesh, pl)
+    return t.reshape(*shape)
+
+
+def _merge_heads(t: torch.Tensor, *shape) -> torch.Tensor:
+    """``t.reshape(*shape)``, the (heads, head dim) dims merged into one. On
+    a DTensor the gradient coming back is put on the merged tensor's own
+    placements first, so the backward's split into heads never meets a
+    split of the merged dim that the heads do not divide (a product's
+    backward may choose one)."""
+    out = t.reshape(*shape)
+    return _KeepPlacements.apply(out) if isinstance(out, DTensor) else out
+
+
+class _KeepPlacements(torch.autograd.Function):
+    """Identity forward; the backward redistributes the gradient to the
+    forward tensor's placements."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh, ctx.placements = x.device_mesh, tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != ctx.placements:
+            g = g.redistribute(ctx.mesh, ctx.placements)
+        return g
 
 
 def _pick_chunk(s: int, target: int = 256) -> int:
@@ -136,7 +185,27 @@ def _write_cache(buf: torch.Tensor, new: torch.Tensor, pos: int) -> None:
     if end > buf.shape[1]:
         raise ValueError(f"KV cache overflow: positions [{pos}, {end}) past "
                          f"max_len {buf.shape[1]}")
+    if isinstance(buf, DTensor):
+        _write_cache_local(buf, new, pos, end)
+        return
     buf[:, pos:end] = new.to(buf.dtype)
+
+
+def _write_cache_local(buf, new, pos: int, end: int) -> None:
+    """The DTensor cache's write: each rank writes the part of [pos, end)
+    its shard of T holds, from ``new`` laid out as ``buf`` is but whole
+    along T."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = buf.device_mesh
+    whole_t = [Replicate() if isinstance(pl, Shard) and pl.dim == 1 else pl
+               for pl in buf.placements]
+    if list(new.placements) != whole_t:
+        new = new.redistribute(mesh, whole_t)
+    first, size = local_range(buf.shape[1], buf.placements, mesh, 1)
+    lo, hi = max(pos, first), min(end, first + size)
+    if lo < hi:
+        buf.to_local()[:, lo - first:hi - first] = \
+            new.to_local()[:, lo - pos:hi - pos].to(buf.dtype)
 
 
 def _attn_apply(cfg: ModelConfig, p, x, *, cache, pos: int, window,
@@ -153,16 +222,16 @@ def _attn_apply(cfg: ModelConfig, p, x, *, cache, pos: int, window,
     q = x @ p["wq"]
     if "bq" in p:
         q = q + p["bq"]
-    q = q.reshape(b, s, cfg.n_heads, hd)
-    src = x if kv_src is None else kv_src
+    q = _split_heads(q, b, s, cfg.n_heads, hd)
+    src = x if kv_src is None else seq_whole(kv_src)
     k = src @ p["wk"]
     v = src @ p["wv"]
     if "bk" in p:
         k, v = k + p["bk"], v + p["bv"]
     kvh = k.shape[-1] // hd
     # T spelled out: an empty memory (T = 0) has no -1 to infer
-    k = k.reshape(b, src.shape[1], kvh, hd)
-    v = v.reshape(b, src.shape[1], kvh, hd)
+    k = _split_heads(k, b, src.shape[1], kvh, hd)
+    v = _split_heads(v, b, src.shape[1], kvh, hd)
     if rope:
         q = L.rotate(q, ctx.cos, ctx.sin)
         if kv_src is None:
@@ -183,12 +252,49 @@ def _attn_apply(cfg: ModelConfig, p, x, *, cache, pos: int, window,
             _write_cache(cache["v"], v, pos)
             k, v = cache["k"], cache["v"]
         kv_len = pos + s
+    kv_dims, kv_pick = _kv_split(q, k)
     if causal:
-        out = attention(q, k, v, q_offset=pos, window=window, kv_len=kv_len,
-                        mask=ctx.mask(window))
+        out = local_call(
+            lambda q, k, v, mask: attention(q, *kv_pick(q, k, v), q_offset=pos,
+                                            window=window, kv_len=kv_len,
+                                            mask=mask),
+            (q, k, v, ctx.mask(window)), (SEQ_HEADS, kv_dims, kv_dims, None),
+            SEQ_HEADS)
     else:
-        out = _bidir_attention(q, k, v)
-    return out.reshape(b, s, cfg.n_heads * hd) @ p["wo"], cache
+        out = local_call(lambda q, k, v: _bidir_attention(q,
+                                                          *kv_pick(q, k, v)),
+                         (q, k, v), (SEQ_HEADS, kv_dims, kv_dims), SEQ_HEADS)
+    return _merge_heads(out, b, s, cfg.n_heads * hd) @ p["wo"], cache
+
+
+def _whole_kv(q, k, v):
+    return k, v
+
+
+def _kv_split(q, k):
+    """How the attention core splits K/V over ``model``: with their heads
+    where the axis divides them, else whole, each rank then taking the KV
+    heads of its own query heads where ``model`` splits them (GQA with
+    fewer KV heads than ranks; ``model`` may split the batch instead).
+    -> (local_call dims of K and V, local (q, k, v) -> the rank's K/V)."""
+    if not isinstance(q, DTensor) or "model" not in \
+            q.device_mesh.mesh_dim_names:
+        return SEQ_HEADS, _whole_kv
+    m = q.device_mesh.size(q.device_mesh.mesh_dim_names.index("model"))
+    h, kvh = q.shape[2], k.shape[2]
+    g = h // kvh
+    per = h // m
+    if m == 1 or kvh % m == 0 or h % m or (g % per and per % g):
+        return SEQ_HEADS, _whole_kv
+    first = q.device_mesh.get_local_rank("model") * per // g
+    n = max(1, per // g)
+
+    def pick(q, k, v):
+        if q.shape[2] == h:               # the heads are whole here
+            return k, v
+        return k[:, :, first:first + n], v[:, :, first:first + n]
+
+    return (0, None, "sum"), pick
 
 
 def _bidir_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -265,9 +371,9 @@ def apply_dense(cfg: ModelConfig, p, meta, x, *, cache, pos: int,
     window = meta.get("window", cfg.sliding_window or 0)
     attn_out, cache = _attn_apply(cfg, p["attn"], h, cache=cache, pos=pos,
                                   window=window, ctx=ctx, causal=causal)
-    x = x + attn_out
+    x = residual_add(x, attn_out)
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + _mlp_apply(p["mlp"], h)
+    x = residual_add(x, _mlp_apply(p["mlp"], h))
     return x, cache, (0.0, 0.0)
 
 
@@ -299,14 +405,14 @@ def apply_moe(cfg: ModelConfig, p, meta, x, *, cache, pos: int,
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     attn_out, cache = _attn_apply(cfg, p["attn"], h, cache=cache, pos=pos,
                                   window=cfg.sliding_window or 0, ctx=ctx)
-    x = x + attn_out
+    x = residual_add(x, attn_out)
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     moe_out, aux, z = moe.moe_ff(h, p["router"], p["we_gate"], p["we_up"],
                                  p["we_down"], top_k=cfg.top_k,
                                  cap_factor=cfg.capacity_factor)
     if "shared" in p:
         moe_out = moe_out + _mlp_apply(p["shared"], h)
-    x = x + moe_out
+    x = residual_add(x, moe_out)
     return x, cache, (aux, z)
 
 
@@ -374,26 +480,34 @@ def apply_mlstm(cfg: ModelConfig, p, meta, x, *, cache, pos: int,
     xi, z = torch.chunk(hin @ p["w_up"], 2, dim=-1)       # (B,S,di) each
     xc, new_conv = _causal_conv(xi, p["conv_w"],
                                 None if cache is None else cache["conv"])
-    q = (xc @ p["wq"]).reshape(b, s, h_heads, dkh)
-    k = (xc @ p["wk"]).reshape(b, s, h_heads, dkh) / (dkh ** 0.5)
-    v = xi.reshape(b, s, h_heads, dvh)
+    q = _split_heads(xc @ p["wq"], b, s, h_heads, dkh)
+    k = _split_heads(xc @ p["wk"], b, s, h_heads, dkh) / (dkh ** 0.5)
+    v = _split_heads(xi, b, s, h_heads, dvh)
     gates = xi.float() @ p["wif"]                          # (B,S,2H) f32
-    i_gate = torch.sigmoid(gates[..., :h_heads])
-    log_f = F.logsigmoid(gates[..., h_heads:])
-    k = k * i_gate[..., None].to(k.dtype)
-    if cache is not None and s == 1:
-        st, out1, n_st, n_out = gla_step(
-            cache["state"], q[:, 0], k[:, 0], v[:, 0], log_f[:, 0],
-            nstate=cache["nstate"])
-        out, n_out = out1[:, None], n_out[:, None]
-    else:
-        out, st, n_out, n_st = chunked_gla(q, k, v, log_f,
-                                           chunk=_pick_chunk(s),
-                                           normalizer=True)
+    step = cache is not None and s == 1
+
+    def core(q, k, v, gi, gf, state, nstate):
+        i_gate = torch.sigmoid(gi)
+        log_f = F.logsigmoid(gf)
+        k = k * i_gate[..., None].to(k.dtype)
+        if step:
+            st, out1, n_st, n_out = gla_step(
+                state, q[:, 0], k[:, 0], v[:, 0], log_f[:, 0], nstate=nstate)
+            return out1[:, None], st, n_out[:, None], n_st
+        return chunked_gla(q, k, v, log_f, chunk=_pick_chunk(s),
+                           normalizer=True)
+
+    out, st, n_out, n_st = local_call(
+        core, (q, k, v, gates[..., :h_heads], gates[..., h_heads:],
+               cache["state"] if step else None,
+               cache["nstate"] if step else None),
+        (SEQ_HEADS,) * 5 + (STATE_HEADS,) * 2,
+        [SEQ_HEADS, STATE_HEADS, SEQ_HEADS, STATE_HEADS])
     hsv = out / torch.clamp(n_out.abs(), min=1.0)[..., None].to(out.dtype)
-    hsv = L.rms_norm(hsv.reshape(b, s, di), p["ln_heads"], cfg.norm_eps) * \
+    hsv = L.rms_norm(_merge_heads(hsv, b, s, di), p["ln_heads"],
+                     cfg.norm_eps) * \
         moe._silu(z)
-    x = x + hsv @ p["w_down"]
+    x = residual_add(x, hsv @ p["w_down"])
     if cache is not None:
         _save(cache, state=st, nstate=n_st, conv=new_conv)
     return x, cache, (0.0, 0.0)
@@ -428,23 +542,30 @@ def apply_slstm(cfg: ModelConfig, p, meta, x, *, cache, pos: int,
     h = cfg.n_heads
     dh = d // h
     hin = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    pre = (hin.float() @ p["w"] + p["b"]).reshape(b, s, h, 4 * dh)
-    if cache is None:
-        h_t = x.new_zeros((b, h, dh), dtype=torch.float32)
-        c_t = torch.zeros_like(h_t)
-    else:
-        h_t, c_t = cache["h"], cache["c"]
-    outs = []
-    for t in range(s):
-        gates = pre[:, t] + torch.einsum("bhd,hdk->bhk", h_t, p["r"])
-        i, f, zg, o = torch.chunk(gates, 4, dim=-1)
-        c_t = torch.sigmoid(f) * c_t + torch.sigmoid(i) * torch.tanh(zg)
-        h_t = torch.sigmoid(o) * torch.tanh(c_t)
-        outs.append(h_t)
-    out = torch.stack(outs, dim=1).reshape(b, s, d)
+    pre = _split_heads(hin.float() @ p["w"] + p["b"], b, s, h, 4 * dh)
+
+    def scan(pre, r, h_t, c_t):
+        if h_t is None:
+            h_t = pre.new_zeros(pre.shape[:1] + pre.shape[2:3] + (dh,))
+            c_t = torch.zeros_like(h_t)
+        outs = []
+        for t in range(s):
+            gates = pre[:, t] + torch.einsum("bhd,hdk->bhk", h_t, r)
+            i, f, zg, o = torch.chunk(gates, 4, dim=-1)
+            c_t = torch.sigmoid(f) * c_t + torch.sigmoid(i) * torch.tanh(zg)
+            h_t = torch.sigmoid(o) * torch.tanh(c_t)
+            outs.append(h_t)
+        return torch.stack(outs, dim=1), h_t, c_t
+
+    out, h_t, c_t = local_call(
+        scan, (pre, p["r"], None if cache is None else cache["h"],
+               None if cache is None else cache["c"]),
+        (SEQ_HEADS, (None, 0), STATE_HEADS, STATE_HEADS),
+        [SEQ_HEADS, STATE_HEADS, STATE_HEADS])
+    out = _merge_heads(out, b, s, d)
     if cache is not None:
         _save(cache, h=h_t, c=c_t)
-    x = x + out.to(x.dtype) @ p["w_down"]
+    x = residual_add(x, out.to(x.dtype) @ p["w_down"])
     return x, cache, (0.0, 0.0)
 
 
@@ -490,24 +611,31 @@ def apply_hymba(cfg: ModelConfig, p, meta, x, *, cache, pos: int,
     xs, z = torch.chunk(hin @ p["w_in"], 2, dim=-1)       # (B,S,di)
     xc, new_conv = _causal_conv(xs, p["conv_w"],
                                 None if cache is None else cache["conv"])
-    bmat, cmat = torch.chunk((xc @ p["w_bc"]).reshape(b, s, h, 2 * ds), 2,
-                             dim=-1)
+    bmat, cmat = torch.chunk(_split_heads(xc @ p["w_bc"], b, s, h, 2 * ds),
+                             2, dim=-1)
     dt_pos = F.softplus(xc.float() @ p["w_dt"])            # (B,S,H) f32
     log_a = -dt_pos * torch.exp(p["a_log"])[None, None, :]
-    v = xs.reshape(b, s, h, di // h) * dt_pos[..., None].to(xs.dtype)
-    if cache is not None and s == 1:
-        st, out1 = gla_step(cache["state"], cmat[:, 0], bmat[:, 0], v[:, 0],
-                            log_a[:, 0])
-        ssm_out = out1[:, None]
-    else:
-        ssm_out, st = chunked_gla(cmat, bmat, v, log_a, chunk=_pick_chunk(s))
-    ssm_out = (ssm_out.reshape(b, s, di) * moe._silu(z)) @ p["w_o_ssm"]
+    v = _split_heads(xs, b, s, h, di // h) * dt_pos[..., None].to(xs.dtype)
+    step = cache is not None and s == 1
+
+    def core(cmat, bmat, v, log_a, state):
+        if step:
+            st, out1 = gla_step(state, cmat[:, 0], bmat[:, 0], v[:, 0],
+                                log_a[:, 0])
+            return out1[:, None], st
+        return chunked_gla(cmat, bmat, v, log_a, chunk=_pick_chunk(s))
+
+    ssm_out, st = local_call(
+        core, (cmat, bmat, v, log_a, cache["state"] if step else None),
+        (SEQ_HEADS,) * 4 + (STATE_HEADS,), [SEQ_HEADS, STATE_HEADS])
+    ssm_out = (_merge_heads(ssm_out, b, s, di) * moe._silu(z)) @ \
+        p["w_o_ssm"]
     # ---- fuse (the mean of the per-path norms, Hymba section 3) ----
     fused = 0.5 * (L.rms_norm(attn_out, p["norm_attn"], cfg.norm_eps) +
                    L.rms_norm(ssm_out, p["norm_ssm"], cfg.norm_eps))
-    x = x + fused
+    x = residual_add(x, fused)
     h_mid = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + _mlp_apply(p["mlp"], h_mid)
+    x = residual_add(x, _mlp_apply(p["mlp"], h_mid))
     if cache is not None:
         _save(cache, conv=new_conv, state=st)
     return x, cache, (0.0, 0.0)
@@ -548,14 +676,14 @@ def apply_xdec(cfg: ModelConfig, p, meta, x, *, cache, pos: int,
     attn_out, _ = _attn_apply(cfg, p["attn"], h,
                               cache=None if cache is None else cache["self"],
                               pos=pos, window=0, ctx=ctx)
-    x = x + attn_out
+    x = residual_add(x, attn_out)
     h = L.rms_norm(x, p["ln_x"], cfg.norm_eps)
     xattn_out, _ = _attn_apply(cfg, p["xattn"], h, cache=None, pos=pos,
                                window=0, ctx=ctx, causal=False, rope=False,
                                kv_src=memory)
-    x = x + xattn_out
+    x = residual_add(x, xattn_out)
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + _mlp_apply(p["mlp"], h)
+    x = residual_add(x, _mlp_apply(p["mlp"], h))
     return x, cache, (0.0, 0.0)
 
 

@@ -11,6 +11,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.context import seq_whole
+
 # float32 elements an initializer draws at once: a full-width stacked
 # matrix is drawn a few groups at a time, so the transient stays ~1 GiB
 DRAW_CHUNK = 1 << 28
@@ -25,11 +27,14 @@ def dtype_of(name: str) -> torch.dtype:
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
     """Computed in float32, cast back to ``x``'s dtype (a bfloat16
-    ``scale`` is promoted inside the product, exactly)."""
+    ``scale`` is promoted inside the product, exactly). A DTensor split
+    along the sequence (Megatron-SP's residual) is normalized where it
+    lies and gathered whole along the sequence for the products that
+    follow (:func:`~repro_torch.distributed.context.seq_whole`)."""
     dt = x.dtype
     x = x.float()
     var = x.square().mean(dim=-1, keepdim=True)
-    return ((x * torch.rsqrt(var + eps)) * scale).to(dt)
+    return seq_whole(((x * torch.rsqrt(var + eps)) * scale).to(dt))
 
 
 # -- RoPE -----------------------------------------------------------------------

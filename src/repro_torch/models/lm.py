@@ -33,11 +33,16 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
+from torch.distributed.tensor import DTensor
 from torch.utils import _pytree as pytree
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.core.pipeline import resolve_device
+from repro_torch.distributed.context import (constrain_residual,
+                                             gather_weights, local_call)
 from repro_torch.models import layers as L
 from repro_torch.models.blocks import (APPLY, INIT, StepContext,
                                        block_pattern, n_groups)
@@ -151,14 +156,48 @@ def params_to_numpy(params) -> dict:
 def embed_tokens(cfg: ModelConfig, table: torch.Tensor,
                  tokens: torch.Tensor) -> torch.Tensor:
     """Rows of ``table`` by token id. An id outside [0, padded_vocab)
-    raises ``IndexError`` (``jnp.take`` would fill NaN)."""
-    if tokens.numel():
-        lo, hi = torch.aminmax(tokens)
+    raises ``IndexError`` (``jnp.take`` would fill NaN); each rank checks
+    the ids it holds, and a fake tensor (a dry-run's trace) has none to
+    check. A DTensor table goes through :func:`_embed_dtensor`."""
+    ids = tokens.to_local() if isinstance(tokens, DTensor) else tokens
+    if ids.numel() and not is_fake(ids):
+        lo, hi = torch.aminmax(ids)
         lo, hi = torch.stack([lo, hi]).tolist()
         if lo < 0 or hi >= table.shape[0]:
             raise IndexError(f"token ids in [{lo}, {hi}] outside "
                              f"[0, {table.shape[0]})")
+    if isinstance(table, DTensor):
+        return _embed_dtensor(table, tokens)
     return table[tokens]
+
+
+def _embed_dtensor(table, tokens):
+    """A table whose rows are split over a mesh axis of more than one rank
+    goes through ``F.embedding``: each rank looks up the ids in its rows
+    and the ``model`` axis sums (DTensor's vocab-parallel path; indexing
+    would gather the whole table). Otherwise each rank indexes its local
+    table (the whole of it, gathered first where FSDP splits it) with its
+    own ids, as the plain path does, and the table's gradient is a partial
+    sum over the axes that split the batch."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = table.device_mesh
+    sizes = mesh.shape
+    if any(isinstance(pl, Shard) and pl.dim == 0 and n > 1
+           for pl, n in zip(table.placements, sizes)):
+        out = F.embedding(tokens, table)
+        return out.redistribute(mesh, [Replicate() if pl.is_partial() else
+                                       pl for pl in out.placements])
+    whole = [pl if n == 1 else Replicate()
+             for pl, n in zip(table.placements, sizes)]
+    if list(table.placements) != whole:
+        table = table.redistribute(mesh, whole)
+    split = [n > 1 and isinstance(pl, Shard)
+             for pl, n in zip(tokens.placements, sizes)]
+    local = table.to_local(grad_placements=[
+        Partial() if s else pl for s, pl in zip(split, whole)])
+    out = local[tokens.to_local()]
+    return DTensor.from_local(out, mesh, [
+        Shard(0) if s else Replicate() for s in split], run_check=False)
 
 
 # =====================================================================
@@ -195,8 +234,15 @@ def run_stack(cfg: ModelConfig, params_blocks, metas, x, *, caches=None,
     t = s if caches is None else _cache_keys(caches[0], s)
     ctx = StepContext(cfg, s, t, pos, None if caches is None else pos + s,
                       x.device)
+    # the residual stream's placement on an active mesh (a no-op without)
+    prefer = ("dp" if cfg.pure_dp else
+              "channel" if cfg.family == "ssm" else "seq")
+    x = constrain_residual(x, prefer)
 
     def group(x, gi, params, memory):
+        # a mesh's storage-only splits gathered for the group's products
+        # (inside the checkpoint: remat gathers again in the backward)
+        params = gather_weights(params, keep_model=not cfg.pure_dp)
         losses = []
         for j, kind in enumerate(pat):
             meta = {k: v[gi] for k, v in metas[j].items()}
@@ -206,7 +252,7 @@ def run_stack(cfg: ModelConfig, params_blocks, metas, x, *, caches=None,
                 cache=None if gc is None else gc[j][gi], pos=pos, ctx=ctx,
                 **kw)
             losses.append(az)
-        return x, losses
+        return constrain_residual(x, prefer), losses
 
     remat = cfg.remat if caches is None and torch.is_grad_enabled() and \
         any(isinstance(t, torch.Tensor) and t.requires_grad
@@ -250,9 +296,10 @@ def _hidden(cfg: ModelConfig, params, batch, caches):
     new_caches)."""
     tokens = batch["tokens"]
     pos = caches["pos"] if caches is not None else 0
-    x = embed_tokens(cfg, params["embed"], tokens)
+    x = embed_tokens(cfg, _weight(cfg, params["embed"]), tokens)
     if cfg.family == "vlm" and "patch_embeds" in batch:
-        pp = batch["patch_embeds"].to(x.dtype) @ params["vis_proj"]
+        pp = batch["patch_embeds"].to(x.dtype) @ _weight(cfg,
+                                                         params["vis_proj"])
         x = torch.cat([pp, x[:, pp.shape[1]:, :]], dim=1)
     memory = None
     if cfg.family == "audio":
@@ -260,7 +307,8 @@ def _hidden(cfg: ModelConfig, params, batch, caches):
                 "frames" not in batch:
             memory = caches["memory"]
         else:                 # encode: RoPE from 0 over the frames, no cache
-            fr = batch["frames"].to(x.dtype) @ params["enc_proj"]
+            fr = batch["frames"].to(x.dtype) @ _weight(cfg,
+                                                       params["enc_proj"])
             memory, _, _, _ = run_stack(cfg, [params["enc_blocks"]], [{}],
                                         fr, pattern=["enc"])
             memory = L.rms_norm(memory, params["enc_norm"], cfg.norm_eps)
@@ -294,11 +342,20 @@ def forward(cfg: ModelConfig, params, batch, caches=None):
     output. caches: serve-state dict or None.
     Returns (logits (B,S,padded_vocab) float32, (aux, z), new_caches)."""
     x, (aux, z), new_caches = _hidden(cfg, params, batch, caches)
-    head = params.get("head")
-    if head is None:
-        head = params["embed"].T
-    logits = _mask_pad_vocab(cfg, (x @ head).float())
+    logits = _mask_pad_vocab(cfg, (x @ _head(cfg, params)).float())
     return logits, (aux, z), new_caches
+
+
+def _weight(cfg: ModelConfig, w):
+    """A parameter as the products use it (``gather_weights``)."""
+    return gather_weights(w, keep_model=not cfg.pure_dp)
+
+
+def _head(cfg: ModelConfig, params) -> torch.Tensor:
+    """The vocab head: ``head``, or the tied embedding transposed."""
+    head = params.get("head")
+    return _weight(cfg, params["embed"]).T if head is None else \
+        _weight(cfg, head)
 
 
 def _mask_pad_vocab(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
@@ -314,7 +371,13 @@ def _mask_pad_vocab(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
 # =====================================================================
 def _ce_terms(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor):
     """(sum of CE over valid labels, count of valid labels); labels < 0
-    are masked."""
+    are masked. On DTensors each rank sums its own rows, whole along the
+    vocab."""
+    return local_call(_ce_sums, (logits, labels), ((0, None), (0, None)),
+                      ["sum", "sum"])
+
+
+def _ce_sums(logits: torch.Tensor, labels: torch.Tensor):
     valid = labels >= 0
     safe = torch.where(valid, labels, 0).long()
     logz = torch.logsumexp(logits, dim=-1)
@@ -355,9 +418,7 @@ def train_loss(cfg: ModelConfig, params, batch):
     stack's ``router_aux_coef * aux + router_z_coef * z``. Returns (loss,
     {"ce", "aux", "z", "tokens"}), each a 0-d tensor."""
     x_final, (aux, z) = forward_hidden(cfg, params, batch)
-    head = params.get("head")
-    if head is None:
-        head = params["embed"].T
+    head = _head(cfg, params)
     labels = batch["labels"]
     s = labels.shape[1]
     if cfg.loss_chunk and s % cfg.loss_chunk == 0 and s > cfg.loss_chunk:

@@ -24,9 +24,11 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import math
 from dataclasses import dataclass
 
 import torch
+from torch.distributed.tensor import DTensor
 
 
 def capacity(s: int, k: int, e: int, factor: float) -> int:
@@ -81,6 +83,10 @@ class RoutingTrace:
 
 _TRACE: contextvars.ContextVar[RoutingTrace | None] = contextvars.ContextVar(
     "moe_routing_trace", default=None)
+# Inside _moe_ff_sharded, on a mesh that splits the batch or the experts:
+# a local mean -> its mean over the ranks (a DTensor)
+_SPLIT: contextvars.ContextVar = contextvars.ContextVar("moe_split",
+                                                       default=None)
 
 
 @contextlib.contextmanager
@@ -137,11 +143,22 @@ def _decide(router_logits: torch.Tensor, k: int, e: int, cap: int):
     # load-balance loss (Switch): E * sum_e f_e * p_e
     me = probs.mean(dim=(0, 1))
     ce = (idx[:, :, :1] == experts).float().mean(dim=(0, 1))
-    aux = e * torch.sum(me * ce)
-    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    aux, z = _balance(me, ce, e, logits)
     if tr is not None:
         tr.calls.append(Routed(idx, vals[..., :k + 1], keep))
     return gates, idx, pos, keep, aux, z
+
+
+def _balance(me, ce, e: int, logits):
+    """(aux, z) from the mean router probabilities ``me``, the mean
+    first-choice counts ``ce`` and the logits. On a rank of a mesh that
+    splits the batch or the experts (``_SPLIT``), ``me``, ``ce`` and the z
+    term become their means over the ranks first."""
+    split = _SPLIT.get()
+    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    if split is not None:
+        me, ce, z = (split(t) for t in (me, ce, z))
+    return e * torch.sum(me * ce), z
 
 
 def route(router_logits: torch.Tensor, k: int, e: int, cap: int):
@@ -172,16 +189,115 @@ def moe_ff(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
            cap_factor: float):
     """x (G,S,D); router_w (D,E) float32; expert weights (E,D,F)/(E,F,D).
 
-    Returns (out (G,S,D) in x's dtype, aux, z)."""
+    Returns (out (G,S,D) in x's dtype, aux, z). DTensor arguments go
+    through :func:`_moe_ff_sharded`."""
+    if isinstance(w_gate, DTensor):
+        return _moe_ff_sharded(x, router_w, w_gate, w_up, w_down,
+                               top_k=top_k, cap_factor=cap_factor)
+    return _moe_ff(x, router_w, w_gate, w_up, w_down, top_k=top_k,
+                   cap_factor=cap_factor)
+
+
+def _moe_ff_sharded(x, router_w, w_gate, w_up, w_down, *, top_k: int,
+                    cap_factor: float):
+    """Expert parallelism on DTensors: every rank routes its own tokens
+    (the batch split as ``x``'s, whole along the model axis), runs the
+    experts it holds (a split over ``model`` of the expert dim, the
+    EXPERT rule's) on the tokens routed to them, and the model axis sums
+    the outputs (``Partial``). The balance terms are averaged over the
+    batch ranks.
+
+    Each rank's gradients are parts: the local tokens' and the router's
+    over the model ranks (each sees its own experts'), the experts' and
+    the router's over the batch ranks (each sees its own tokens). So the
+    balance terms, the same on every model rank, enter as ``Partial`` sums
+    of their share (value / ranks; exact for a power-of-two axis). With
+    every expert on the rank it is :func:`_moe_ff` on the local
+    tensors."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = w_gate.device_mesh
+    sizes, names = mesh.shape, mesh.mesh_dim_names
+    x_split = [isinstance(pl, Shard) and pl.dim == 0 and n > 1
+               for pl, n in zip(x.placements, sizes)] \
+        if isinstance(x, DTensor) else [False] * mesh.ndim
+    e_split = [names[i] == "model" and n > 1 and not x_split[i] and
+               w_gate.shape[0] % n == 0 for i, n in enumerate(sizes)]
+
+    def local(t, split, summed=()):
+        """``t``'s local tensor, split on dim 0 where ``split`` says, whole
+        along the other axes of more than one rank (an axis of one rank
+        keeps its placement: nothing to move); its gradient a sum over
+        the axes in ``summed``."""
+        if not isinstance(t, DTensor):
+            return t
+        pl = [t.placements[i] if n == 1 else Shard(0) if split[i] else
+              Replicate() for i, n in enumerate(sizes)]
+        t = t if list(t.placements) == pl else t.redistribute(mesh, pl)
+        return t.to_local(grad_placements=[
+            Partial() if i in summed else p for i, p in enumerate(pl)])
+
+    # each rank's gradients: the tokens' a sum over the expert ranks, the
+    # experts' over the batch ranks, the router's over both
+    by_e = tuple(i for i, es in enumerate(e_split) if es)
+    by_x = tuple(i for i, xs in enumerate(x_split) if xs)
+    # x's two uses (the router's first, as the plain path makes them) each
+    # take their own local tensor, so x's gradient sums the same terms in
+    # the same order as the plain path's
+    lx_router, lx = (local(x, x_split, by_e) for _ in range(2))
+    lr = local(router_w, [False] * mesh.ndim, by_e + by_x)
+    lg, lu, ld = (local(w, e_split, by_x) for w in (w_gate, w_up, w_down))
+    e = router_w.shape[-1]
+    e_local = lg.shape[0]
+    coord = mesh.get_coordinate() or [0] * mesh.ndim
+    first = sum(coord[i] for i in by_e) * e_local
+    shared = [xs or es for xs, es in zip(x_split, e_split)]
+    n_shared = math.prod(n for n, sh in zip(sizes, shared) if sh)
+
+    def share(t):
+        """A local mean (or a term every model rank holds) -> its mean over
+        the batch ranks, as Partial sums of shares."""
+        return DTensor.from_local(t / n_shared, mesh, [
+            Partial() if sh else Replicate() for sh in shared],
+            run_check=False)
+
+    token = _SPLIT.set(share if any(shared) else None)
+    try:
+        out, aux, z = _moe_ff(lx, lr, lg, lu, ld, top_k=top_k,
+                              cap_factor=cap_factor, experts=(first, e),
+                              x_router=lx_router)
+    finally:
+        _SPLIT.reset(token)
+    out = DTensor.from_local(out, mesh, [
+        Shard(0) if xs else Partial() if es else Replicate()
+        for xs, es in zip(x_split, e_split)], run_check=False)
+    if not any(shared):          # one rank's worth: whole copies
+        aux, z = (DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                     run_check=False) for t in (aux, z))
+    return out, aux, z
+
+
+def _moe_ff(x, router_w, w_gate, w_up, w_down, *, top_k: int,
+            cap_factor: float, experts=None, x_router=None):
+    """:func:`moe_ff` on plain tensors. ``experts`` = (first, E): the
+    expert weights are experts [first, first + len) of E, and the output
+    sums only theirs (all of them when None). ``x_router``: x's values
+    for the router (x itself when None)."""
     g, s, d = x.shape
     e = router_w.shape[-1]
     cap = capacity(s, top_k, e, cap_factor)
     # float32 logits from x and the float32 router
-    logits = x.float() @ router_w.float()
+    logits = (x if x_router is None else x_router).float() @ \
+        router_w.float()
     gates, idx, pos, keep, aux, z = _decide(logits, top_k, e, cap)
     # each (token, choice)'s row of the (E, G*C + 1) buffer; every dropped
     # pair goes to the last row, whose products nothing reads back
     row = torch.arange(g, device=x.device)[:, None, None] * cap + pos
+    if experts is not None and w_gate.shape[0] != e:
+        # another rank's expert: its pair goes to the dropped row too
+        idx = idx - experts[0]
+        keep = keep & (idx >= 0) & (idx < w_gate.shape[0])
+        idx = torch.where(keep, idx, 0)
+        e = w_gate.shape[0]
     row = torch.where(keep, row, g * cap)
     buf = x.new_zeros((e, g * cap + 1, d))
     buf[idx, row] = x[:, :, None, :].expand(g, s, top_k, d)    # exact copies

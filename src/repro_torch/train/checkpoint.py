@@ -7,8 +7,11 @@ Fault-tolerance contract:
 - async: ``save_async`` snapshots to host memory on the caller's thread,
   then writes on a daemon thread so the train loop keeps going;
 - restart: ``restore_latest`` finds the newest complete step; ``restore``
-  puts the arrays on ``device`` (moving them onto another mesh is not
-  ported).
+  puts the arrays on ``device``, or onto any mesh by specs, each rank
+  taking only its own part from the host arrays (the elastic re-mesh: the
+  same arrays on the mesh ``fault.plan_elastic_mesh`` shapes);
+- sharded: a tree of DTensors is saved whole: every rank gathers each
+  leaf, rank 0 writes and the others wait at a barrier.
 
 Leaves are named by their key paths (``['blocks'][0]['wq']``), a dict's
 keys in sorted order, as the reference's ``tree_flatten_with_path`` names
@@ -28,6 +31,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.pipeline import resolve_device
 
@@ -64,6 +68,8 @@ def _unflatten(tree, values):
 
 
 def _to_host(x) -> np.ndarray:
+    if isinstance(x, DTensor):
+        x = x.full_tensor()
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu()
         if x.dtype == torch.bfloat16:
@@ -102,11 +108,29 @@ def _write(ckpt_dir: str, step: int, names: list, host: list,
     return final
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _sharded(leaves) -> bool:
+    return any(isinstance(x, DTensor) for x in leaves)
+
+
 def save(ckpt_dir: str, step: int, tree: Any,
          extra: dict | None = None) -> str:
-    """Blocking save. Returns the final checkpoint path."""
+    """Blocking save. Returns the final checkpoint path. A tree with
+    DTensors is saved by every rank's call: each gathers, rank 0 writes,
+    all meet at a barrier after."""
     names, leaves = _flatten_with_names(tree)
-    return _write(ckpt_dir, step, names, [_to_host(x) for x in leaves], extra)
+    host = [_to_host(x) for x in leaves]
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if _rank() == 0:
+        final = _write(ckpt_dir, step, names, host, extra)
+    if _sharded(leaves):
+        import torch.distributed as dist
+        dist.barrier()
+    return final
 
 
 class AsyncCheckpointer:
@@ -127,6 +151,8 @@ class AsyncCheckpointer:
         self.wait()
         names, leaves = _flatten_with_names(tree)
         host = [_to_host(x) for x in leaves]
+        if _rank() != 0:                  # rank 0 writes a sharded tree
+            return
 
         def _run():
             _write(self.ckpt_dir, step, names, host, extra)
@@ -153,13 +179,17 @@ def latest_steps(ckpt_dir: str) -> list[int]:
     return sorted(out)
 
 
-def restore(ckpt_dir: str, step: int, tree_like: Any,
-            device=None) -> tuple[Any, dict]:
+def restore(ckpt_dir: str, step: int, tree_like: Any, device=None, *,
+            mesh=None, specs=None) -> tuple[Any, dict]:
     """Restore into the structure of ``tree_like`` (values are ignored):
     each tensor leaf onto ``device`` (``cuda`` unless named), a bfloat16
-    one from its raw records, a host int leaf as an int. A structure that
-    differs from the checkpoint's raises ``ValueError``."""
-    device = resolve_device(device)
+    one from its raw records, a host int leaf as an int. With ``mesh``,
+    each leaf is put on the mesh by ``specs`` (a tree of ``sharding.Spec``
+    shaped as ``tree_like``): every rank reads the arrays on the host and
+    copies only its own part to its mesh device. A structure that differs
+    from the checkpoint's raises ``ValueError``."""
+    device = resolve_device(mesh.device_type if mesh is not None
+                            else device)
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -167,15 +197,22 @@ def restore(ckpt_dir: str, step: int, tree_like: Any,
     if names != manifest["names"]:
         raise ValueError("checkpoint tree structure mismatch: "
                          f"{set(names) ^ set(manifest['names'])}")
+    to = torch.device("cpu") if mesh is not None else device
     with np.load(os.path.join(path, "arrays_p0.npz")) as data:
-        arrays = [_from_host(data[str(i)], like, device)
+        arrays = [_from_host(data[str(i)], like, to)
                   for i, like in enumerate(leaves)]
-    return _unflatten(tree_like, iter(arrays)), manifest["extra"]
+    tree = _unflatten(tree_like, iter(arrays))
+    if mesh is not None:
+        from repro_torch.distributed.sharding import split_placed
+        tree = split_placed(tree, specs, mesh, device)
+    return tree, manifest["extra"]
 
 
-def restore_latest(ckpt_dir: str, tree_like: Any, device=None):
+def restore_latest(ckpt_dir: str, tree_like: Any, device=None, *,
+                   mesh=None, specs=None):
     steps = latest_steps(ckpt_dir)
     if not steps:
         return None, None, None
-    tree, extra = restore(ckpt_dir, steps[-1], tree_like, device)
+    tree, extra = restore(ckpt_dir, steps[-1], tree_like, device, mesh=mesh,
+                          specs=specs)
     return steps[-1], tree, extra

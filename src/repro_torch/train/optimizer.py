@@ -18,13 +18,22 @@ returns them as the reference returns its new ones. Each operation rounds
 as the reference's: a bfloat16 parameter is updated in float32 and rounded
 once, the scalars (bias corrections, Adafactor's decay, the clip factor)
 are float32 tensors on the parameter's device.
+
+On a mesh (DTensor parameters, gradients and states) each gradient is
+first put on its parameter's placements (a ``Partial`` one summed); a
+moment placed otherwise (ZeRO-1's ``data`` split) takes the gradient and
+the parameter redistributed to its placements (:func:`_onto_state`), and
+the updated parameter goes back to its own.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import contextlib
+
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils import _pytree as pytree
 
 F32 = torch.float32
@@ -77,9 +86,38 @@ def dequantize_blockwise(d) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 def global_norm(tree) -> torch.Tensor:
     """Squares in each gradient's dtype, sums in float32 (no float32 copy
-    of a bf16 gradient), leaves added from 0 in order."""
-    return torch.sqrt(sum(torch.sum(g * g, dtype=F32)
-                          for g in pytree.tree_leaves(tree)))
+    of a bf16 gradient), leaves added from 0 in order. DTensor leaves go
+    through :func:`_global_norm_sharded`."""
+    leaves = pytree.tree_leaves(tree)
+    if leaves and isinstance(leaves[0], DTensor):
+        return _global_norm_sharded(leaves)
+    return torch.sqrt(sum(torch.sum(g * g, dtype=F32) for g in leaves))
+
+
+def _global_norm_sharded(leaves) -> torch.Tensor:
+    """Each rank sums the squares of its shards, leaves grouped by the
+    mesh axes (of more than one rank) that split them and added from 0 in
+    order within a group; each group's sum is then summed over its axes
+    (one all-reduce a group), and the groups added in order. A plain
+    replicated float32 scalar. On a one-rank mesh it is
+    :func:`global_norm`'s sum, bit for bit."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = leaves[0].device_mesh
+    groups: dict = {}
+    for g in leaves:
+        key = tuple(i for i, (pl, n) in enumerate(zip(g.placements,
+                                                     mesh.shape))
+                    if n > 1 and isinstance(pl, Shard))
+        loc = g.to_local()
+        groups[key] = groups.get(key, 0) + torch.sum(loc * loc, dtype=F32)
+    total = 0
+    for key, part in groups.items():
+        if key:
+            part = DTensor.from_local(part, mesh, [
+                Partial() if i in key else Replicate()
+                for i in range(mesh.ndim)], run_check=False).full_tensor()
+        total = total + part
+    return torch.sqrt(total)
 
 
 def _clip_factor(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -143,7 +181,8 @@ def _adam_step(cfg, g32, m, v, p, bc1, bc2, lr) -> None:
 # AdamW
 # ---------------------------------------------------------------------------
 def _adamw_init(params):
-    zeros = lambda p: torch.zeros(p.shape, dtype=F32, device=p.device)
+    # zeros_like: a DTensor parameter's moments are made on its rank only
+    zeros = lambda p: torch.zeros_like(p, dtype=F32)
     return {"m": pytree.tree_map(zeros, params),
             "v": pytree.tree_map(zeros, params)}
 
@@ -159,8 +198,8 @@ def _adamw_leaf(cfg, g32, m, v, p, bc1, bc2, lr):
 def _adamw8_init(params):
     def qzeros(p):
         if not _quantized(p.shape):
-            return torch.zeros(p.shape, dtype=F32, device=p.device)
-        return {"q": torch.zeros(p.shape, dtype=torch.int8, device=p.device),
+            return torch.zeros_like(p, dtype=F32)
+        return {"q": torch.zeros_like(p, dtype=torch.int8),
                 "scale": torch.zeros(p.shape[:-1], dtype=F32,
                                      device=p.device)}
     return {"m": pytree.tree_map(qzeros, params),
@@ -289,7 +328,11 @@ def apply_updates(cfg: OptConfig, grads, state: dict, params, lr,
     scheduled LR (a float32 scalar). The gradients are clipped to
     ``cfg.clip_norm`` by their global norm first (each times the float32
     factor cast to its dtype), leaf by leaf as each is updated; ``stats``,
-    when given, receives that norm as ``"grad_norm"``."""
+    when given, receives that norm as ``"grad_norm"``. DTensor gradients
+    are put on their parameters' placements in ``grads`` itself first."""
+    sharded = isinstance(pytree.tree_leaves(params)[0], DTensor)
+    if sharded:
+        _settle(params, grads)
     factor = None
     if cfg.clip_norm > 0 or stats is not None:
         norm = global_norm(grads)
@@ -307,19 +350,59 @@ def apply_updates(cfg: OptConfig, grads, state: dict, params, lr,
     dev = pytree.tree_leaves(params)[0].device
     scalars = ((decay.to(dev),) if cfg.name == "adafactor" else
                (bc[0].to(dev), bc[1].to(dev))) + (_scalar(lr, dev),)
+    if sharded:
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
     outs = []
-    for p, g, *st in _walk(params, grads, *(state[k] for k in keys)):
+    with implicit_replication() if sharded else contextlib.nullcontext():
+        for p, g, *st in _walk(params, grads, *(state[k] for k in keys)):
+            p_t = p
+            if sharded:
+                g, p_t = _onto_state(g, p, st)
 
-        def g32(i=None, g=g):
-            gi = g if i is None else g[i]
-            if factor is None:
-                return gi.to(F32, copy=True)
-            return (gi * factor.to(gi.dtype)).float()
+            def g32(i=None, g=g):
+                gi = g if i is None else g[i]
+                if factor is None:
+                    return gi.to(F32, copy=True)
+                return (gi * factor.to(gi.dtype)).float()
 
-        outs.append(leaf(cfg, g32, *st, p, *scalars))
+            outs.append(leaf(cfg, g32, *st, p_t, *scalars))
+            if p_t is not p:
+                p.copy_(p_t.redistribute(p.device_mesh, p.placements))
     new = {k: _rebuild(params, (o[i] for o in outs))
            for i, k in enumerate(keys)}
     return params, dict(state, **new, step=step)
+
+
+def _settle(params, grads) -> None:
+    """Each DTensor gradient put on its parameter's placements (a
+    ``Partial`` one summed over its axes), in ``grads``' own containers,
+    so the unsummed one is freed as it goes."""
+    items = grads.items() if isinstance(grads, dict) else enumerate(grads)
+    for k, g in list(items):
+        p = params[k]
+        if isinstance(g, (dict, list)):
+            _settle(p, g)
+        elif tuple(g.placements) != tuple(p.placements):
+            grads[k] = g.redistribute(p.device_mesh, p.placements)
+
+
+def _onto_state(g, p, st):
+    """(gradient, parameter) of one DTensor leaf, the gradient on its
+    parameter's placements, moved to where its update runs: the first
+    state tensor's placements (all replicated for Adafactor's factors,
+    whose shape is not the parameter's). The parameter is itself where
+    nothing moves, else a copy."""
+    from torch.distributed.tensor import Replicate
+    mesh = p.device_mesh
+    first = pytree.tree_leaves(st)[0]
+    target = tuple(first.placements) if first.shape == p.shape else \
+        (Replicate(),) * mesh.ndim
+    if tuple(g.placements) != target:
+        g = g.redistribute(mesh, target)
+    p_t = p if tuple(p.placements) == target else \
+        p.redistribute(mesh, target)
+    return g, p_t
 
 
 def state_bytes_per_param(cfg: OptConfig) -> float:

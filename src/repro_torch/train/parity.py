@@ -7,7 +7,8 @@ the two share one definition of "the card trains as the CPU does":
 - one ``train_loss`` step: the loss within :data:`LOSS_RTOL` x max(1,
   loss), and each gradient leaf within rtol :data:`RTOL` and atol
   :data:`ATOL` x the standard deviation of that leaf's CPU gradient
-  (:data:`ATOL_BY_ARCH` where a family's own noise floor is above it);
+  (:func:`card_atol`: :data:`ATOL_BY_ARCH` where a family's own noise
+  floor is above it, :data:`CARD_ATOL_BY_ARCH` where the card's gap is);
 - one ``apply_updates`` of each optimizer from the same gradients and
   state (the CPU's): parameters and float moments within rtol
   :data:`UPD_RTOL` and atol :data:`UPD_ATOL`; AdamW8's scales within rtol
@@ -20,8 +21,9 @@ ids differ from the CPU's, each such decision must have a CPU top-k margin
 under ``lm_parity.ROUTE_MARGIN``, at most ``lm_parity.MAX_ROUTE_FLIPS``,
 and the card's step is then taken again with the CPU's ids forced.
 
-``python -m repro_torch.train.parity --arch ARCH ... --seeds N`` prints
-the gradient gap at seeds 0 to N-1 without stopping at one past its atol.
+``python -m repro_torch.train.parity --arch ARCH ... --seeds N
+[--first-seed F]`` prints the gradient gap at seeds F to F+N-1 without
+stopping at one past its atol.
 """
 from __future__ import annotations
 
@@ -49,6 +51,16 @@ RTOL, ATOL = 1e-4, 1e-5        # atol in units of each CPU gradient's std
 # section 6, LM training; fixed before the first card reading): about
 # twice that
 ATOL_BY_ARCH = {"xlstm-1.3b": 1e-3, "llama4-maverick-400b-a17b": 3e-5}
+# The card against the CPU where that floor does not transfer: hymba's
+# card-against-CPU gap over seeds 0-7 read up to 3.002e-05 std (w_bc,
+# seed 4), past its CPU floor; twice that (6.0e-05) on the 1-3-10 ladder,
+# fixed before the held-out seeds 8-15 were read
+CARD_ATOL_BY_ARCH = {"hymba-1.5b": 1e-4}
+
+
+def card_atol(arch: str) -> float:
+    """The gradient atol of the card against the CPU, in std units."""
+    return CARD_ATOL_BY_ARCH.get(arch, ATOL_BY_ARCH.get(arch, ATOL))
 UPD_RTOL, UPD_ATOL = 1e-6, 1e-8
 MAX_CODE_FLIPS = 8             # AdamW8 int8 codes one apart, per leaf
 OPTIMIZERS = ("adamw", "adamw8", "adafactor")
@@ -222,7 +234,7 @@ def check_train_card_matches_cpu(cfg, device=None, *, seed: int, b: int = 2,
             raise AssertionError(f"{what}: metric {k} {float(c_metrics[k])} "
                                  f"on the card, {float(metrics[k])} on the "
                                  "CPU")
-    atol = ATOL_BY_ARCH.get(cfg.name, ATOL)
+    atol = card_atol(cfg.name)
     gaps = gradient_gaps(grads, c_grads)
     for path, gap, d_max, std in gaps:
         if not gap <= atol:
@@ -248,9 +260,10 @@ def check_train_card_matches_cpu(cfg, device=None, *, seed: int, b: int = 2,
 
 
 def main(argv=None) -> None:
-    """``python -m repro_torch.train.parity --arch hymba-1.5b --seeds 8``:
-    the gradient gap of :func:`check_train_card_matches_cpu`, card against
-    CPU, at seeds 0 to N-1, the worst leaves of each beside the arch's
+    """``python -m repro_torch.train.parity --arch hymba-1.5b --seeds 8
+    --first-seed 8``: the gradient gap of
+    :func:`check_train_card_matches_cpu`, card against CPU, at seeds F to
+    F+N-1 (F 0 unless named), the worst leaves of each beside the arch's
     atol; it reports and does not stop at a gap."""
     import argparse
 
@@ -258,12 +271,13 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=main.__doc__)
     ap.add_argument("--arch", nargs="+", required=True)
     ap.add_argument("--seeds", type=int, default=2)
+    ap.add_argument("--first-seed", type=int, default=0)
     ap.add_argument("--device", default=None)
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     for arch in args.arch:
-        atol = ATOL_BY_ARCH.get(arch, ATOL)
-        for seed in range(args.seeds):
+        atol = card_atol(arch)
+        for seed in range(args.first_seed, args.first_seed + args.seeds):
             *_, (_, _, grads), (_, _, c_grads), _ = _steps(
                 reduced(get_config(arch)), device, seed, 2, 16)
             gaps = sorted(gradient_gaps(grads, c_grads), key=lambda g: -g[1])

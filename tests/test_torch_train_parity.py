@@ -33,7 +33,7 @@ def _stand_in(monkeypatch, leaf: str, times: float):
         loss, metrics, grads, note = real(cfg, params, batch, cpu_calls, what)
         g = dict(parity._paths(grads))[leaf].view(-1)
         std = float(g.double().std(correction=0))
-        atol = parity.ATOL_BY_ARCH.get(cfg.name, parity.ATOL)
+        atol = parity.card_atol(cfg.name)
         g[0] += times * atol * std + parity.RTOL * abs(float(g[0]))
         return loss, metrics, grads, note
     monkeypatch.setattr(parity, "_routed_step", routed)
@@ -46,7 +46,7 @@ def test_check_holds_each_leaf_to_its_arch_atol(monkeypatch, arch, times):
     cfg = reduced(get_config(arch))
     if times < 1:
         line = parity.check_train_card_matches_cpu(cfg, "cpu", seed=0)
-        atol = parity.ATOL_BY_ARCH.get(arch, parity.ATOL)
+        atol = parity.card_atol(arch)
         worst = float(line.split("(worst ")[1].split(" std")[0])
         assert worst == pytest.approx(times * atol, rel=0.02)
     else:
@@ -69,8 +69,15 @@ def test_gradient_gaps_units_and_zero_spread():
 
 
 def test_main_reports_each_seed(capsys):
+    """hymba's atol is its own (1e-4, set from the card's seeds 0-7);
+    ``--first-seed`` starts the seeds elsewhere."""
     parity.main(["--arch", "hymba-1.5b", "--seeds", "2", "--device", "cpu"])
     out = capsys.readouterr().out.splitlines()
     assert [line.split(":")[0] for line in out] == [
         "hymba-1.5b seed 0", "hymba-1.5b seed 1"]
-    assert all("within atol 1e-05 std" in line for line in out)
+    assert all("within atol 0.0001 std" in line for line in out)
+    parity.main(["--arch", "glm4-9b", "--seeds", "1", "--first-seed", "8",
+                 "--device", "cpu"])
+    out = capsys.readouterr().out.splitlines()
+    assert [line.split(":")[0] for line in out] == ["glm4-9b seed 8"]
+    assert "within atol 1e-05 std" in out[0]

@@ -1,8 +1,9 @@
 """Port parity, the training runtime: ``repro_torch.train`` (optimizers,
 schedules, checkpoints, fault tolerance) on the CPU.
 
-Every test of ``tests/test_train_runtime.py`` but the gradient-compression
-ones (a mesh's collectives are not ported) runs on the port, plus:
+Every test of ``tests/test_train_runtime.py`` runs on the port (the
+gradient compression's on both packages, the port's codes and scales
+equal to the reference's bit for bit), plus:
 one ``apply_updates`` of each optimizer against the reference's from the
 same parameters, gradients and state (rtol 1e-6 / atol 1e-8: the same
 float32 operations, rounded once each, the global norm summed in another
@@ -353,6 +354,36 @@ def test_plan_elastic_mesh():
     assert p.shape == (2, 16, 16)
     with pytest.raises(ValueError):
         plan_elastic_mesh(8, model_parallel=16)
+
+
+# -- gradient compression (test_train_runtime.py:168-184) ----------------------------
+@given(st.integers(0, 1000))
+@settings(max_examples=20, deadline=None)
+def test_compression_roundtrip_property(seed):
+    """The reference's property on both packages, and the port's codes,
+    scales and round trip equal to the reference's bit for bit."""
+    from repro.distributed import compression as jcomp
+    from repro_torch.distributed import compression as comp
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal(1000) * rng.uniform(0.1, 10)).astype(np.float32)
+    scale = float(np.abs(x).max()) / 127.0
+    y_ref = np.asarray(jcomp.compress_decompress(jnp.asarray(x)))
+    y = comp.compress_decompress(torch.from_numpy(x)).numpy()
+    for got in (y_ref, y):
+        assert float(np.abs(x - got).max()) <= scale * 0.51 + 1e-6
+    np.testing.assert_array_equal(y, y_ref)
+    q_ref, s_ref = jcomp.quantize(jnp.asarray(x))
+    q, s = comp.quantize(torch.from_numpy(x))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(q_ref))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(s_ref))
+
+
+def test_compression_ratio():
+    from repro.distributed import compression as jcomp
+    from repro_torch.distributed import compression as comp
+    r = comp.compression_ratio({"w": torch.zeros(1024, 1024)})
+    assert 3.5 < r < 4.01
+    assert r == jcomp.compression_ratio({"w": jnp.zeros((1024, 1024))})
 
 
 def test_fault_log_summary():

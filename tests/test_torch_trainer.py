@@ -118,8 +118,10 @@ def test_trainer_adamw8_path():
 
 
 def test_trainer_refuses_a_mesh():
+    """A mesh runs (tests/test_torch_distributed.py); what is not a
+    DeviceMesh with named axes is refused before a step."""
     cfg, params, store, *_ = _setup()
-    with pytest.raises(NotImplementedError, match="5\\(e\\)"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Trainer(cfg=cfg, opt=OptConfig(), train=TrainConfig(steps=1),
                 mesh=object()).fit(params, _data(store, cfg, batch=2,
                                                  seq=8))
