@@ -1,0 +1,10 @@
+"""The share of the profiled batch in which no operation ran on the
+device, in %.
+Returns None where the run has nothing to read."""
+
+
+def read(run):
+    t = run.trace if run.kind == "serve_batch" else None
+    if not t or not t["busy_s"]:
+        return None
+    return (1 - t["busy_s"] / t["window_s"]) * 100
