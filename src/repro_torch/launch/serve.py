@@ -27,6 +27,7 @@ import time
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.configs import get_config
 from repro_torch.launch.train import preset_config
 from repro_torch.models import lm
@@ -56,6 +57,7 @@ def main(argv=None):
     reqs = [Request(prompt=rng.integers(0, cfg.vocab, args.prompt_len)
                     .astype(np.int32), max_new_tokens=args.max_new)
             for _ in range(args.requests)]
+    obs.reset()
     t0 = time.time()
     done = engine.run_batch(reqs)
     dt = time.time() - t0
@@ -68,6 +70,8 @@ def main(argv=None):
     for i, r in enumerate(done[:3]):
         print(f"  req{i}: prompt[:8]={r.prompt[:8].tolist()} "
               f"-> out[:8]={r.out_tokens[:8]}")
+    print("host reads: " + (", ".join(
+        f"{site} {n}" for site, n in sorted(obs.counts().items())) or "none"))
     return stats
 
 

@@ -17,6 +17,7 @@ import dataclasses
 import json
 import time
 
+from repro_torch import obs
 from repro_torch.configs import get_config, reduced
 from repro_torch.data import TokenStore, synthetic_corpus, token_batches
 from repro_torch.models import lm
@@ -85,6 +86,7 @@ def main(argv=None):
                           ckpt_every=max(10, args.steps // 4),
                           ckpt_dir=args.ckpt_dir),
     )
+    obs.reset()
     t0 = time.time()
     params, history = trainer.fit(params, data)
     dt = time.time() - t0
@@ -94,6 +96,8 @@ def main(argv=None):
           f"({toks/dt:.0f} tok/s)")
     print(f"loss: {first['loss']:.4f} -> {last['loss']:.4f}")
     print(json.dumps(history[-3:], indent=1))
+    print("host reads: " + (", ".join(
+        f"{site} {n}" for site, n in sorted(obs.counts().items())) or "none"))
     if trainer.fault_log.events:
         print("fault log:", trainer.fault_log.summary())
     assert last["loss"] < first["loss"], "training must reduce loss"

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.models.flash import NEG_INF, flash_attention
 
 
@@ -66,12 +67,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     if is_direct(s, t, kv_chunk):
         # direct path: scores are small (decode or short context)
-        scores = _gqa_scores(qg, k)                      # (B,KV,G,S,T)
-        if mask is None:
-            mask = attention_mask(s, t, q_offset=q_offset, window=window,
-                                  kv_len=kv_len, device=q.device)
-        probs = torch.softmax(scores + mask, dim=-1).to(q.dtype)
-        out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+        with obs.span("attn.direct"):
+            scores = _gqa_scores(qg, k)                  # (B,KV,G,S,T)
+            if mask is None:
+                mask = attention_mask(s, t, q_offset=q_offset,
+                                      window=window, kv_len=kv_len,
+                                      device=q.device)
+            probs = torch.softmax(scores + mask, dim=-1).to(q.dtype)
+            out = torch.einsum("bkgst,btkd->bskgd", probs, v)
         return out.reshape(b, s, h, dh)
 
     # flash path: O(S) memory (models/flash.py)

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
+from repro_torch import obs
 from repro_torch.distributed.context import (local_call, residual_add,
                                              seq_whole)
 from repro_torch.distributed.sharding import local_range
@@ -314,9 +315,10 @@ def _bidir_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kbias = torch.zeros((t,), dtype=torch.float32, device=q.device)
         out = flash_attention(qg, k, v, q_pos, kbias, 0.0, kv_chunk)
         return out.reshape(b, s, h, dh)
-    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float())
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    with obs.span("attn.direct"):
+        scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float())
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
+        out = torch.einsum("bkgst,btkd->bskgd", probs, v)
     return out.reshape(b, s, h, dh)
 
 

@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
+
 NEG_INF = -1e30
 
 
@@ -60,48 +62,55 @@ def _fwd_scan(qg, k, v, q_pos, kbias, window: float, kv_chunk: int):
     return out.permute(0, 3, 1, 2, 4), m, l        # -> (B,S,KV,G,dh)
 
 
+def _bwd_scan(dout, qg, k, v, q_pos, kbias, out, m, l, window: float,
+              kv_chunk: int):
+    """-> (dq, dk, dv) in the inputs' dtypes, chunk by chunk of keys."""
+    t = k.shape[1]
+    l_safe = torch.clamp(l, min=1e-30)
+    dout32 = dout.float()
+    q32 = qg.float()
+    # delta[b,k,g,s] = sum_d dout * out, from the float32 accumulator
+    delta = torch.einsum("bskgd,bskgd->bkgs", dout32, out)
+    dq = torch.zeros(qg.shape, dtype=torch.float32, device=qg.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    for c0 in range(0, t - t % kv_chunk, kv_chunk):
+        ks32 = k[:, c0:c0 + kv_chunk].float()
+        vs32 = v[:, c0:c0 + kv_chunk].float()
+        scores = torch.einsum("bskgd,btkd->bkgst", q32, ks32)
+        k_pos = torch.arange(c0, c0 + kv_chunk, dtype=torch.float32,
+                             device=qg.device)
+        scores = scores + _mask(q_pos, k_pos, window,
+                                kbias[c0:c0 + kv_chunk])
+        p = torch.exp(scores - m[..., None]) / l_safe[..., None]
+        p = torch.where(scores <= NEG_INF / 2, 0.0, p)
+        del scores
+        dv[:, c0:c0 + kv_chunk] = torch.einsum("bkgst,bskgd->btkd", p,
+                                               dout32)
+        dp = torch.einsum("bskgd,btkd->bkgst", dout32, vs32)
+        ds = p * (dp - delta[..., None])
+        del p, dp
+        dq += torch.einsum("bkgst,btkd->bskgd", ds, ks32)
+        dk[:, c0:c0 + kv_chunk] = torch.einsum("bkgst,bskgd->btkd", ds,
+                                               q32)
+    return dq.to(qg.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qg, k, v, q_pos, kbias, window: float, kv_chunk: int):
-        out, m, l = _fwd_scan(qg, k, v, q_pos, kbias, window, kv_chunk)
+        with obs.span("attn.flash"):
+            out, m, l = _fwd_scan(qg, k, v, q_pos, kbias, window, kv_chunk)
         ctx.save_for_backward(qg, k, v, q_pos, kbias, out, m, l)
         ctx.window, ctx.kv_chunk = window, kv_chunk
         return out.to(qg.dtype)
 
     @staticmethod
     def backward(ctx, dout):
-        qg, k, v, q_pos, kbias, out, m, l = ctx.saved_tensors
-        window, kv_chunk = ctx.window, ctx.kv_chunk
-        t = k.shape[1]
-        l_safe = torch.clamp(l, min=1e-30)
-        dout32 = dout.float()
-        q32 = qg.float()
-        # delta[b,k,g,s] = sum_d dout * out, from the float32 accumulator
-        delta = torch.einsum("bskgd,bskgd->bkgs", dout32, out)
-        dq = torch.zeros(qg.shape, dtype=torch.float32, device=qg.device)
-        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
-        dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
-        for c0 in range(0, t - t % kv_chunk, kv_chunk):
-            ks32 = k[:, c0:c0 + kv_chunk].float()
-            vs32 = v[:, c0:c0 + kv_chunk].float()
-            scores = torch.einsum("bskgd,btkd->bkgst", q32, ks32)
-            k_pos = torch.arange(c0, c0 + kv_chunk, dtype=torch.float32,
-                                 device=qg.device)
-            scores = scores + _mask(q_pos, k_pos, window,
-                                    kbias[c0:c0 + kv_chunk])
-            p = torch.exp(scores - m[..., None]) / l_safe[..., None]
-            p = torch.where(scores <= NEG_INF / 2, 0.0, p)
-            del scores
-            dv[:, c0:c0 + kv_chunk] = torch.einsum("bkgst,bskgd->btkd", p,
-                                                   dout32)
-            dp = torch.einsum("bskgd,btkd->bkgst", dout32, vs32)
-            ds = p * (dp - delta[..., None])
-            del p, dp
-            dq += torch.einsum("bkgst,btkd->bskgd", ds, ks32)
-            dk[:, c0:c0 + kv_chunk] = torch.einsum("bkgst,bskgd->btkd", ds,
-                                                   q32)
-        return (dq.to(qg.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
-                None, None)
+        with obs.span("attn.flash_bwd"):
+            grads = _bwd_scan(dout, *ctx.saved_tensors, ctx.window,
+                              ctx.kv_chunk)
+        return grads + (None, None, None, None)
 
 
 def flash_attention(qg, k, v, q_pos, kbias, window: float,

@@ -40,6 +40,7 @@ from torch.utils import _pytree as pytree
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch import obs
 from repro_torch.core.pipeline import resolve_device
 from repro_torch.distributed.context import (constrain_residual,
                                              gather_weights, local_call)
@@ -161,8 +162,9 @@ def embed_tokens(cfg: ModelConfig, table: torch.Tensor,
     check. A DTensor table goes through :func:`_embed_dtensor`."""
     ids = tokens.to_local() if isinstance(tokens, DTensor) else tokens
     if ids.numel() and not is_fake(ids):
-        lo, hi = torch.aminmax(ids)
-        lo, hi = torch.stack([lo, hi]).tolist()
+        with obs.host_read("embed_ids"):
+            lo, hi = torch.aminmax(ids)
+            lo, hi = torch.stack([lo, hi]).tolist()
         if lo < 0 or hi >= table.shape[0]:
             raise IndexError(f"token ids in [{lo}, {hi}] outside "
                              f"[0, {table.shape[0]})")
@@ -342,7 +344,8 @@ def forward(cfg: ModelConfig, params, batch, caches=None):
     output. caches: serve-state dict or None.
     Returns (logits (B,S,padded_vocab) float32, (aux, z), new_caches)."""
     x, (aux, z), new_caches = _hidden(cfg, params, batch, caches)
-    logits = _mask_pad_vocab(cfg, (x @ _head(cfg, params)).float())
+    with obs.span("lm.head"):
+        logits = _mask_pad_vocab(cfg, (x @ _head(cfg, params)).float())
     return logits, (aux, z), new_caches
 
 

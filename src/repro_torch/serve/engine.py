@@ -18,6 +18,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch import obs
 from repro_torch.core.pipeline import resolve_device
 from repro_torch.distributed.sharding import canonical_device
 from repro_torch.models import lm
@@ -76,16 +77,19 @@ class ServeEngine:
         prompts = np.zeros((self.b, plen), np.int32)
         for i, r in enumerate(requests):
             prompts[i] = r.prompt
-        state = lm.init_serve_state(self.cfg, self.b, max_len=self.max_len,
-                                    device=self.device)
-        logits, state = lm.prefill(
-            self.cfg, self.params, state,
-            {"tokens": torch.from_numpy(prompts).to(self.device)})
-        tok = self._sample(logits[:, -1:])
+        with obs.span("engine.prefill"):
+            state = lm.init_serve_state(self.cfg, self.b,
+                                        max_len=self.max_len,
+                                        device=self.device)
+            logits, state = lm.prefill(
+                self.cfg, self.params, state,
+                {"tokens": torch.from_numpy(prompts).to(self.device)})
+            tok = self._sample(logits[:, -1:])
         max_new = max(r.max_new_tokens for r in requests)
         done = np.zeros(self.b, bool)
         for step in range(max_new):
-            tok_np = tok[:, 0].cpu().numpy()
+            with obs.host_read("engine_tokens"):
+                tok_np = tok[:, 0].cpu().numpy()
             for i, r in enumerate(requests):
                 if not done[i] and step < r.max_new_tokens:
                     t = int(tok_np[i])
@@ -96,8 +100,10 @@ class ServeEngine:
                 break
             if int(state["pos"]) >= self.max_len:
                 break
-            logits, state = lm.decode_step(self.cfg, self.params, state, tok)
-            tok = self._sample(logits)
+            with obs.span("engine.decode_step"):
+                logits, state = lm.decode_step(self.cfg, self.params, state,
+                                               tok)
+                tok = self._sample(logits)
         return requests
 
     def throughput_stats(self, requests: list[Request],
