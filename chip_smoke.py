@@ -162,13 +162,14 @@ checkout's sources (into build/torch_ext/) and needs one card. Phases:
    gathered over a 65,536-row batch (the bench's full-mode N). Every
    gathered row must equal ``AugmentedDictionary.featurize`` bit for bit,
    and the three kernels must have launched.
-8. LM serving — launch counts set to 0 again (no hand-written kernel
-   runs here: the LM's products, the MoE experts' batched ones too, are
-   cuBLAS calls, as the reference's are XLA's einsums; the counts must
-   stay 0), TF32 off. A: the five dense and vlm
-   archs (glm4-9b, qwen2-7b, minicpm-2b, starcoder2-15b,
-   llava-next-mistral-7b) at ``reduced()`` in float32, parameters from the
-   port's seeded init on the CPU copied to the card: ``ServeEngine`` on
+8. LM serving — launch counts set to 0 again (the LM's products, the MoE
+   experts' batched ones too, are cuBLAS calls, as the reference's are
+   XLA's einsums; attention past 1,024 keys runs flash's kernels, which
+   must launch; the feature store's counts must stay 0), TF32 off. A:
+   the five dense and vlm archs (glm4-9b, qwen2-7b, minicpm-2b,
+   starcoder2-15b, llava-next-mistral-7b) at ``reduced()`` in float32,
+   parameters from the port's seeded init on the CPU copied to the
+   card: ``ServeEngine`` on
    the card against the same engine on the CPU, 3 requests of 6 tokens, 8
    new, greedy tokens equal; prefill and decode logits over those tokens
    within rtol 1e-4 / atol 1e-5; also glm4-9b with the int8 cache and at
@@ -233,8 +234,9 @@ checkout's sources (into build/torch_ext/) and needs one card. Phases:
    within 0.01 and every clear argmax equal; bf16: within
    ``RECURRENT_BF16_TOL``, twice the reference's own gap on the CPU, the
    clear argmaxes that agree printed beside the reference's.
-9. LM training — launch counts set to 0 again (as in phase 8, no
-   hand-written kernel runs here; the counts must stay 0), TF32 off. A:
+9. LM training — launch counts set to 0 again (as in phase 8: flash's
+   three kernels must launch, the feature store's counts stay 0), TF32
+   off. A:
    ``train.parity.check_train_card_matches_cpu`` for every arch of
    ``configs.ARCH_IDS`` at ``reduced()`` in float32, B 2 x S 16: one
    ``train_loss`` step on the card against the CPU (loss within 1e-5 x
@@ -248,10 +250,22 @@ checkout's sources (into build/torch_ext/) and needs one card. Phases:
    windows 0 and 1,024) against autograd of direct softmax attention, in
    float32 (max |d| <= 1e-4 x max |reference|) and in bf16 against float32
    direct attention over the same bf16 values (1e-2); each route's
-   forward-plus-backward ms and peak memory. C: ``chunked_ce`` at the full
-   vocabulary (tied head 2,304 x 122,880, B 2 x S 2,048, float32) against
-   the unchunked loss: the loss, and the gradients of ``x_final`` and of
-   the head within 1e-5 x max |reference|. D: minicpm-2b at full width and
+   forward-plus-backward ms and peak memory. F: flash's kernels at both
+   benchmark cells' layer shapes (minicpm-2b 2 x 2,048 x 36 heads of 64;
+   glm4-9b 8 x 1,500 queries over 2,048 keys, kv_len 1,500, 2 x 16 heads
+   of 128), bf16, the output and three gradients against float32 direct
+   attention over the same bf16 values, each row's error on its own scale
+   (``flash_row_error``) within ``FLASH_ROW_TOL``, and two faults planted
+   in the live-tile bounds (``FLASH_FAULTS``: the first live key tile
+   skipped past 1,024 keys; the diagonal left unmasked) above it; the
+   kernel's ms beside its bound (the causal pairs' two
+   forward and four backward products at 989 TFLOP/s against the bytes
+   at 3.35 TB/s), the plain version's ms, ``scaled_dot_product_attention``
+   as the yardstick (never called by the port), the live-tile share. C:
+   ``chunked_ce`` at the full vocabulary (tied head 2,304 x 122,880, B 2
+   x S 2,048, float32) against the unchunked loss: the loss, and the
+   gradients of ``x_final`` and of the head within 1e-5 x max
+   |reference|. D: minicpm-2b at full width and
    depth in bf16 (2,725,173,504 parameters, 5,450,347,008 B, drawn on the
    card from ``--seed``, ``remat="layer"``), batches from ``token_batches``
    over ``TokenStore(synthetic_corpus(2,000,000, 122,753))``: the first
@@ -259,13 +273,16 @@ checkout's sources (into build/torch_ext/) and needs one card. Phases:
    ``TRAIN_BF16_LOSS_TOL``; T1, the ``Trainer`` with AdamW, lr 3e-3, WSD,
    12 steps, warmup 2, B 2 x S 2,048 (the launcher's defaults for this
    arch): each step's loss, grad norm and lr, every one finite and the
-   loss at step 11 below step 0's; the median step over steps 2-11 beside
+   loss at step 11 below step 0's; flash's launches over the 12 steps
+   exactly 80 forward, 40 dQ and 40 dK/dV a step (40 layers, the forward
+   again under remat), and T2's likewise; the median step over steps 2-11 beside
    its bound (``lm_train_flops``) and the function's own
    (``lm_train_flops_causal``), host calls and device time of one more
    step, the optimizer's ms, peak memory; T2, the same model with AdamW8
    for 4 steps, its state's bytes beside AdamW's, peak memory.
-10. dry-run and model sharding — launch counts set to 0 again (no
-   hand-written kernel runs here; the counts must stay 0), TF32 off. A: a
+10. dry-run and model sharding — launch counts set to 0 again (flash's
+   kernels run past 1,024 keys, none under the trace's fake tensors; the
+   feature store's counts must stay 0), TF32 off. A: a
    one-rank NCCL mesh, (1, 1) ("data", "model") on cuda:0: every arch at
    ``reduced()`` in float32, 2 AdamW steps of B 2 x S 16 through
    ``make_train_step(mesh=)`` against 2 meshless steps from the same
@@ -284,8 +301,8 @@ checkout's sources (into build/torch_ext/) and needs one card. Phases:
    prediction passes 72 GB): FLOPs equal to the trace's exactly, peak
    within [0.85, 1.15] of the prediction, its ms beside the roofline's
    compute and memory terms (H100 published figures).
-11. report — one JSON line per the kernel table, the nvidia-smi line, and
-   last ``{"ok": true, "device": {...}}``.
+11. report — one JSON line per the kernel table, one for flash's rows
+   (9F), the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits nonzero before the last line. Without CUDA, or
 without the package beside this script, it exits nonzero at once.
@@ -337,6 +354,9 @@ REPLACES = {"adv_gather_packed_rows": "src/repro/kernels/adv_gather/kernel.py:11
             "bitunpack": "src/repro/kernels/bitunpack/kernel.py:33",
             "hist": "src/repro/kernels/hist/kernel.py:19",
             "adv_gather": "src/repro/kernels/adv_gather/kernel.py:23"}
+# flash attention's kernels: no TPU kernel, the reference's custom VJP
+FLASH_SOURCE = "src/repro_torch/kernels/flash/flash.cu"
+FLASH_REPLACES = "src/repro/models/flash.py:65 (jax.custom_vjp, no Pallas)"
 # paper Table 6's column (benchmarks/bench_featurize.py:29, 844-846)
 TABLE6_K = 999
 
@@ -3346,14 +3366,16 @@ def train_parity(configs, dev, seed: int) -> None:
         log(f"  {line} [{time.perf_counter() - t0:.3f} s]")
 
 
-def direct_attention(qg, k, v, q_pos, window: float) -> torch.Tensor:
+def direct_attention(qg, k, v, q_pos, window: float,
+                     kbias=None) -> torch.Tensor:
     """Softmax attention over the whole (S, T) score matrix, float32."""
     from repro_torch.models.flash import _mask
     t = k.shape[1]
     k_pos = torch.arange(t, dtype=torch.float32, device=k.device)
+    if kbias is None:
+        kbias = torch.zeros(t, device=k.device)
     scores = torch.einsum("bskgd,btkd->bkgst", qg, k)
-    scores = scores + _mask(q_pos, k_pos, window,
-                            torch.zeros(t, device=k.device))
+    scores = scores + _mask(q_pos, k_pos, window, kbias)
     return torch.einsum("bkgst,btkd->bskgd", torch.softmax(scores, dim=-1),
                         v)
 
@@ -3407,6 +3429,198 @@ def flash_grad_check(dev, seed: int) -> None:
                 f"{', '.join(errs)} (tolerance {FLASH_GRAD_TOL[dt]}); "
                 f"forward + backward flash {f_ms:.3f} ms, peak "
                 f"{f_peak} B; direct {d_ms:.3f} ms, peak {d_peak} B")
+
+
+# flash's rows: the two benchmark cells' attention layers, (name, B, S, KV,
+# G, dh, T, kv_len); bf16, causal from position 0
+FLASH_ROW_SHAPES = (("minicpm-2b", 2, 2048, 36, 1, 64, 2048, None),
+                    ("glm4-9b", 8, 1500, 2, 16, 128, 2048, 1500))
+# the kernels (bf16) against float32 direct attention over the same bf16
+# values, by flash_row_error: three times the largest of 24 sound readings
+# (1.87e-2, a dq; out, dk, dv at most 3.6e-3), a sixteenth of the least
+# planted fault's (0.97); PERF.md section 6, PR 33
+FLASH_ROW_TOL = 0.06
+FLASH_ROWS: list[dict] = []        # reported in phase 11
+
+
+def flash_row_error(a: torch.Tensor, ref: torch.Tensor) -> float:
+    """The largest over rows (the last axis: one query's or one key's head
+    values) of |a - ref| over the larger of |ref| and the rows' RMS |ref|:
+    each row's error on the scale of its own value, one wrong row enough
+    to show. The floor keeps a row whose exact value cancels to about 0
+    (dq of a query that sees one key) from reading rounding as error."""
+    a, ref = a.float().flatten(0, -2), ref.float().flatten(0, -2)
+    n = ref.norm(dim=1)
+    floor = n.square().mean().sqrt().clamp(min=1e-30)
+    return float(((a - ref).norm(dim=1) / torch.maximum(n, floor)).max())
+
+
+def _skip_first_tile(bounds: torch.Tensor) -> torch.Tensor:
+    """A planted fault: query tiles whose live range holds 16 key tiles or
+    more (1,024 keys at 64 a tile) skip the first of them."""
+    out = bounds.clone()
+    out[:, 0] += (out[:, 1] - out[:, 0] >= 16).int()
+    return out
+
+
+def _unmask_live_tiles(bounds: torch.Tensor) -> torch.Tensor:
+    """A planted fault: every live key tile taken as kept by position, so
+    the diagonal tile goes unmasked."""
+    out = bounds.clone()
+    out[:, 2:] = out[:, :2]
+    return out
+
+
+FLASH_FAULTS = {"first live key tile skipped past 1,024 keys":
+                _skip_first_tile,
+                "every live tile left unmasked": _unmask_live_tiles}
+
+
+def flash_kernel_grads(qg, k, v, dout, q_pos, kbias, window: float,
+                       fault=None) -> list:
+    """[out, dq, dk, dv] from the flash kernels' wrapper (``ops.forward``,
+    then ``ops.backward`` from its saved tensors); ``fault`` rewrites the
+    live-tile bounds of every launch (one of ``FLASH_FAULTS``)."""
+    from unittest import mock
+    from repro_torch.kernels.flash import ops as flash_ops
+    live = flash_ops.live_tiles
+    planted = (lambda *a: fault(live(*a))) if fault else live
+    with mock.patch.object(flash_ops, "live_tiles", planted):
+        out, out32, m, l, bounds = flash_ops.forward(qg, k, v, q_pos, kbias,
+                                                     window, 1024)
+        return [out, *flash_ops.backward(dout, qg, k, v, q_pos, kbias,
+                                         out32, m, l, bounds, window, 1024)]
+
+
+def flash_direct_grads(qg, k, v, dout, q_pos, kbias, window: float) -> list:
+    """[out, dq, dk, dv] of direct attention in float32 over the same
+    values, by autograd: the yardstick of 9F."""
+    leaves = [x.float().requires_grad_() for x in (qg, k, v)]
+    out = direct_attention(*leaves, q_pos, window, kbias)
+    return [out.detach(), *torch.autograd.grad(out, leaves, dout.float())]
+
+
+def flash_cell_inputs(dev, seed: int, b, s, kvh, g, dh, t, kv_len):
+    """bf16 (qg pre-scaled, k, v, dout) and float32 (q_pos from 0, kbias
+    masking keys from ``kv_len`` on) at one of ``FLASH_ROW_SHAPES``."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    qg, dout = (torch.randn((b, s, kvh, g, dh), generator=gen,
+                            device=dev).bfloat16() for _ in range(2))
+    qg = (qg * dh ** -0.5).bfloat16()
+    k, v = (torch.randn((b, t, kvh, dh), generator=gen,
+                        device=dev).bfloat16() for _ in range(2))
+    q_pos = torch.arange(s, dtype=torch.float32, device=dev)
+    kbias = torch.zeros(t, device=dev)
+    if kv_len is not None:
+        kbias[kv_len:] = -1e30
+    return qg, k, v, dout, q_pos, kbias
+
+
+def flash_rows(dev, seed: int) -> None:
+    """9F: flash's kernels at each cell's layer shape against float32
+    direct attention over the same bf16 values: the output and the three
+    gradients within ``FLASH_ROW_TOL`` by ``flash_row_error``, and each of
+    ``FLASH_FAULTS`` planted in the live-tile bounds read above it (the
+    check has to catch them). Each row: the kernel's ms (the wrapper's
+    call, queued back to back), its bound (the causal pairs' products, two
+    forward and four backward, at 989 TFLOP/s against the bytes read and
+    written once at 3.35 TB/s), the plain version's ms,
+    ``scaled_dot_product_attention``'s ms as the yardstick (``library_ms``:
+    the port never calls it; the backward's is its autograd backward), and
+    the share of (query tile, key tile) pairs the live-tile rule visits."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.models.flash import _bwd_scan, _fwd_scan
+    log("F. flash's kernels at the cells' layer shapes, bf16, against "
+        "float32 direct attention (error of a row on its own scale), and "
+        "planted faults:")
+    for name, b, s, kvh, g, dh, t, kv_len in FLASH_ROW_SHAPES:
+        qg, k, v, dout, q_pos, kbias = flash_cell_inputs(
+            dev, seed, b, s, kvh, g, dh, t, kv_len)
+        pairs = b * kvh * g * int(((q_pos[:, None] >= torch.arange(
+            t, device=dev)[None, :]) & (kbias[None, :] == 0)).sum())
+        want = flash_direct_grads(qg, k, v, dout, q_pos, kbias, 0.0)
+        got = flash_kernel_grads(qg, k, v, dout, q_pos, kbias, 0.0)
+        errs = [flash_row_error(a, w) for a, w in zip(got, want)]
+        if not max(errs) <= FLASH_ROW_TOL:
+            fail(f"9F: flash at {name}'s shape: out, dq, dk, dv read "
+                 f"{errs} against direct attention (limit {FLASH_ROW_TOL})")
+        faults = {}
+        for fault_name, fault in FLASH_FAULTS.items():
+            bad = flash_kernel_grads(qg, k, v, dout, q_pos, kbias, 0.0,
+                                     fault)
+            faults[fault_name] = max(flash_row_error(a, w)
+                                     for a, w in zip(bad, want))
+            del bad
+            if not faults[fault_name] > FLASH_ROW_TOL:
+                fail(f"9F: flash at {name}'s shape: the planted fault "
+                     f"'{fault_name}' reads {faults[fault_name]}, within "
+                     f"the limit {FLASH_ROW_TOL}")
+        log(f"  {name}: out, dq, dk, dv {', '.join(f'{e:.3e}' for e in errs)}"
+            f" (limit {FLASH_ROW_TOL}); planted faults "
+            + ", ".join(f"{n!r} {e:.3e}" for n, e in faults.items()))
+        del got, want
+        out, out32, m, l, bounds = flash_ops.forward(qg, k, v, q_pos, kbias,
+                                                     0.0, 1024)
+        fwd = lambda: flash_ops.forward(qg, k, v, q_pos, kbias, 0.0, 1024)
+        bwd = lambda: flash_ops.backward(dout, qg, k, v, q_pos, kbias, out32,
+                                         m, l, bounds, 0.0, 1024)
+        # the yardstick: SDPA over (B, H, S, dh), causal from the top left
+        sq = qg.reshape(b, s, kvh * g, dh).transpose(1, 2)
+        sk, sv = (x[:, :s if kv_len else t].repeat_interleave(g, dim=2)
+                  .transpose(1, 2) for x in (k, v))
+        leaves = [x.detach().requires_grad_() for x in (sq, sk, sv)]
+        lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                 scale=1.0)
+        lib_dout = dout.reshape(b, s, kvh * g, dh).transpose(1, 2)
+        library = {
+            "fwd": lambda: F.scaled_dot_product_attention(
+                sq, sk, sv, is_causal=True, scale=1.0),
+            "bwd": lambda: torch.autograd.grad(lib_out, leaves, lib_dout,
+                                               retain_graph=True)}
+        plain = {"fwd": lambda: _fwd_scan(qg, k, v, q_pos, kbias, 0.0, 1024),
+                 "bwd": lambda: _bwd_scan(dout, qg, k, v, q_pos, kbias, out32,
+                                          m, l, 0.0, 1024)}
+        # bf16 q, k, v read, out (bf16) and out32 written, m and l; then
+        # q, k, v, dout, out32, m, l read and dq, dk, dv written
+        io = {"fwd": (4 * dh * pairs, 8 * qg.numel() + 4 * k.numel()
+                      + 8 * m.numel()),
+              "bwd": (8 * dh * pairs, 10 * qg.numel() + 8 * k.numel()
+                      + 8 * m.numel())}
+        for kind, call in (("fwd", fwd), ("bwd", bwd)):
+            tiles = flash_ops.tiles(dh, 1)
+            bm, bn = tiles[:2] if kind == "fwd" else tiles[2:]
+            live_bounds = flash_ops.live_tiles(q_pos, 0.0, g, bm, bn,
+                                               t - t % 1024)
+            live = float((live_bounds[:, 1] - live_bounds[:, 0]).sum()) / \
+                (live_bounds.shape[0] * -(-(t - t % 1024) // bn))
+            ms = time_ms(call, iters=10, reps=7, queue_ahead=True)
+            plain_ms = time_ms(plain[kind], iters=1, reps=3,
+                               queue_ahead=False)
+            library_ms = time_ms(library[kind], iters=10, reps=7,
+                                 queue_ahead=True)
+            ops, nbytes = io[kind]
+            op_ms, byte_ms = ops / BF16_OPS_PER_S * 1e3, \
+                nbytes / HBM_BYTES_PER_S * 1e3
+            row = {"name": f"flash_{kind}", "cell": name,
+                   "shape": f"qg {tuple(qg.shape)}, k/v {tuple(k.shape)}",
+                   "ms": ms, "bound_ms": max(op_ms, byte_ms),
+                   "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+                   "plain_ms": plain_ms, "library_ms": library_ms,
+                   "live_tile_share": live, "pairs": pairs, "ops": ops,
+                   "bytes": nbytes,
+                   "row_err": max(errs[:1] if kind == "fwd" else errs[1:]),
+                   "planted_fault_row_err": min(faults.values())}
+            FLASH_ROWS.append(row)
+            log(f"  {row['name']} [{name}: {row['shape']}]: kernel "
+                f"{ms:.6f} ms back to back, bound {row['bound_ms']:.6f} ms "
+                f"({ops} bf16 ops over {pairs} causal pairs at 989 TFLOP/s, "
+                f"{nbytes} B at 3.35 TB/s; {row['bound_by']}), plain "
+                f"{plain_ms:.6f} ms, library (SDPA) {library_ms:.6f} ms; "
+                f"live tiles {live:.4f}")
+        del lib_out, leaves, out, out32, m, l
+        torch.cuda.empty_cache()
 
 
 def chunked_ce_check(lm, get_config, dev, seed: int) -> None:
@@ -3464,6 +3678,7 @@ def train_full_width(lm, get_config, dev, seed: int, smi: str) -> None:
     steps) and T2 (AdamW8, 4 steps) through the ``Trainer``."""
     from torch.utils import _pytree as pytree
     from repro_torch.data import TokenStore, synthetic_corpus, token_batches
+    from repro_torch.kernels.flash import ops as flash_ops
     from repro_torch.train import optimizer, parity
     from repro_torch.train.trainer import (TrainConfig, Trainer,
                                            make_train_step)
@@ -3510,6 +3725,11 @@ def train_full_width(lm, get_config, dev, seed: int, smi: str) -> None:
     own_ops = lm_train_flops_causal(cfg, TRAIN_B, TRAIN_S)
     own = own_ops / BF16_OPS_PER_S
     runs = (("T1", "adamw", TRAIN_STEPS), ("T2", "adamw8", T2_STEPS))
+    # flash's launches a step: each layer's forward (twice under remat
+    # "layer": the checkpoint runs it again in the backward) and backward
+    per_step = {"flash_fwd": cfg.n_layers * (2 if cfg.remat == "layer"
+                                             else 1),
+                "flash_bwd_dq": cfg.n_layers, "flash_bwd_dkdv": cfg.n_layers}
     adamw_bytes = 0
     for name, opt_name, steps in runs:
         opt = optimizer.OptConfig(name=opt_name, lr=TRAIN_LR)
@@ -3518,14 +3738,21 @@ def train_full_width(lm, get_config, dev, seed: int, smi: str) -> None:
         trainer = Trainer(cfg=cfg, opt=opt, train=train)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        flash_ops.reset_launches()
         t0 = time.perf_counter()
         params, hist = trainer.fit(params, batches())
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
+        launched = dict(flash_ops.LAUNCHES)
+        want = {k: n * steps for k, n in per_step.items()}
         state_b = optimizer.state_bytes(trainer.opt_state)
         log(f"  {name}: {TRAIN_ARCH} with {opt_name}, lr {TRAIN_LR} (wsd, "
             f"warmup {TRAIN_WARMUP}), {steps} steps of B {TRAIN_B} x S "
-            f"{TRAIN_S} in {wall:.3f} s:")
+            f"{TRAIN_S} in {wall:.3f} s; flash launched {launched} (want "
+            f"{want}):")
+        if launched != want:
+            fail(f"{name}: the Trainer's {steps} steps launched flash's "
+                 f"kernels {launched} times, not {want}")
         for h in hist:
             log(f"    step {h['step']}: loss {h['loss']!r}, grad norm "
                 f"{h['grad_norm']!r}, lr {h['lr']!r}, {h['dt'] * 1e3:.3f} ms")
@@ -3577,6 +3804,7 @@ def lm_train_path(lm, configs, dev, seed: int, smi: str) -> None:
     then minicpm-2b trained at full width and depth."""
     train_parity(configs, dev, seed)
     flash_grad_check(dev, seed)
+    flash_rows(dev, seed)
     chunked_ce_check(lm, configs.get_config, dev, seed)
     train_full_width(lm, configs.get_config, dev, seed, smi)
 
@@ -3853,6 +4081,7 @@ def main() -> None:
     from repro_torch.kernels.adv_gather import ops, ref
     from repro_torch.kernels.bitunpack import ops as unpack_ops
     from repro_torch.kernels.bitunpack import ref as unpack_ref
+    from repro_torch.kernels.flash import ops as flash_ops
     from repro_torch.kernels.hist import ops as hist_ops, ref as hist_ref
     from repro_torch.kernels.predicate_scan import ops as scan_ops
     from repro_torch.kernels.onehot_wide import ops as wide_ops
@@ -4168,13 +4397,18 @@ def main() -> None:
         fail("TF32 matmuls are on: the LM's float32 parity needs full float32")
     for counter in counters:
         counter.reset_launches()
-    log("LM serving (no hand-written kernel on this path: cuBLAS products "
-        "and PyTorch ops; the launch counts must stay 0):")
+    flash_ops.reset_launches()
+    log("LM serving (cuBLAS products, PyTorch ops and flash's kernels past "
+        "1,024 keys; the feature store's launch counts must stay 0):")
     lm_path(lm, configs, Request, ServeEngine, dev, args.seed, smi)
     served = {k: v for counter in counters for k, v in counter.LAUNCHES.items()}
-    log(f"kernels launched on the LM serving path: {served}")
+    log(f"kernels launched on the LM serving path: {served}, flash "
+        f"{dict(flash_ops.LAUNCHES)}")
     if any(served.values()):
         fail("the LM serving path launched a kernel it has no use for")
+    if not flash_ops.LAUNCHES["flash_fwd"]:
+        fail("the LM serving path's prefills past 1,024 keys launched no "
+             "flash kernel")
     log(f"phase 8 (LM serving) wall: {time.perf_counter() - phase_t0:.3f} s")
 
     # -- 9. LM training -------------------------------------------------------------------
@@ -4183,12 +4417,14 @@ def main() -> None:
         fail("TF32 matmuls are on: the training parity needs full float32")
     for counter in counters:
         counter.reset_launches()
-    log("LM training (no hand-written kernel on this path: cuBLAS products "
-        "and PyTorch ops; the launch counts must stay 0):")
+    flash_ops.reset_launches()
+    log("LM training (cuBLAS products, PyTorch ops and flash's kernels past "
+        "1,024 keys; the feature store's launch counts must stay 0):")
     lm_train_path(lm, configs, dev, args.seed, smi)
     trained = {k: v for counter in counters
                for k, v in counter.LAUNCHES.items()}
-    log(f"kernels launched on the LM training path: {trained}")
+    log(f"kernels launched on the LM training path: {trained} (flash's "
+        "are counted around 9D's Trainer runs)")
     if any(trained.values()):
         fail("the LM training path launched a kernel it has no use for")
     log(f"phase 9 (LM training) wall: {time.perf_counter() - phase_t0:.3f} s")
@@ -4199,12 +4435,15 @@ def main() -> None:
         fail("TF32 matmuls are on: the mesh parity needs full float32")
     for counter in counters:
         counter.reset_launches()
-    log("dry-run and model sharding (no hand-written kernel on this path; "
-        "the launch counts must stay 0):")
+    flash_ops.reset_launches()
+    log("dry-run and model sharding (flash's kernels past 1,024 keys, none "
+        "under the trace's fake tensors; the feature store's launch counts "
+        "must stay 0):")
     mesh_path(lm, configs, dev, args.seed)
     sharded = {k: v for counter in counters
                for k, v in counter.LAUNCHES.items()}
-    log(f"kernels launched on the sharding path: {sharded}")
+    log(f"kernels launched on the sharding path: {sharded}, flash "
+        f"{dict(flash_ops.LAUNCHES)}")
     if any(sharded.values()):
         fail("the sharding path launched a kernel it has no use for")
     log(f"phase 10 (dry-run and model sharding) wall: "
@@ -4219,6 +4458,9 @@ def main() -> None:
          "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
          "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
         for name, k in kernels.items()]}))
+    print(json.dumps({"flash_kernels": [
+        {**row, "route": "cuda", "source": FLASH_SOURCE,
+         "replaces": FLASH_REPLACES} for row in FLASH_ROWS]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,6 +13,8 @@
   C categorical columns) and its scatter-add gradient
 - ``bitunpack``      — device-width packed words -> int32 codes; the device
   word widths and the host repack
+- ``flash``          — flash attention's forward and backward (dQ, then
+  dK/dV) on the tensor cores, for the LM path past 1,024 keys
 - ``packed_code.cuh`` — the packed word layout every kernel reads it by
 - ``launch``         — what every wrapper shares (checks, stream, errors)
 - ``edge_cases``     — the inputs the kernels are held to on a card

@@ -28,6 +28,7 @@ SOURCES = {
     "hist": _HERE / "hist" / "hist.cu",
     "onehot_wide": _HERE / "onehot_wide" / "onehot_wide.cu",
     "bitunpack": _HERE / "bitunpack" / "bitunpack.cu",
+    "flash": _HERE / "flash" / "flash.cu",
 }
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

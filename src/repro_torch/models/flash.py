@@ -13,12 +13,19 @@ inputs and (out, m, l) per query, ``out`` the float32 accumulator before the
 cast; the backward recomputes each chunk's probabilities from (q, k, m, l)
 and accumulates dq, dk and dv chunk by chunk (the FlashAttention-2
 dataflow), so one chunk's (S, chunk) float32 work is live at a time.
+
+Those chunked scans are the plain version, run for CPU tensors (the CPU
+tests hold them to the reference). A CUDA tensor takes the hand-written
+kernels of :mod:`repro_torch.kernels.flash` (``flash.cu``): the same
+saved tensors, the forward and the backward each fused on the tensor
+cores, the key tiles the mask removes whole skipped.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch import obs
+from repro_torch.kernels.flash import ops as kernel
 
 NEG_INF = -1e30
 
@@ -100,17 +107,28 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qg, k, v, q_pos, kbias, window: float, kv_chunk: int):
         with obs.span("attn.flash"):
-            out, m, l = _fwd_scan(qg, k, v, q_pos, kbias, window, kv_chunk)
-        ctx.save_for_backward(qg, k, v, q_pos, kbias, out, m, l)
-        ctx.window, ctx.kv_chunk = window, kv_chunk
-        return out.to(qg.dtype)
+            if qg.device.type == "cuda":
+                out, out32, m, l, bounds = kernel.forward(
+                    qg, k, v, q_pos, kbias, window, kv_chunk)
+            else:
+                out32, m, l = _fwd_scan(qg, k, v, q_pos, kbias, window,
+                                        kv_chunk)
+                out, bounds = out32.to(qg.dtype), None
+        ctx.save_for_backward(qg, k, v, q_pos, kbias, out32, m, l)
+        # the live tiles the forward's launch visited, which its dQ reuses
+        ctx.bounds, ctx.window, ctx.kv_chunk = bounds, window, kv_chunk
+        return out
 
     @staticmethod
     def backward(ctx, dout):
         with obs.span("attn.flash_bwd"):
-            grads = _bwd_scan(dout, *ctx.saved_tensors, ctx.window,
-                              ctx.kv_chunk)
-        return grads + (None, None, None, None)
+            saved = ctx.saved_tensors
+            if dout.device.type == "cuda":
+                grads = kernel.backward(dout, *saved, ctx.bounds, ctx.window,
+                                        ctx.kv_chunk)
+            else:
+                grads = _bwd_scan(dout, *saved, ctx.window, ctx.kv_chunk)
+        return tuple(grads) + (None, None, None, None)
 
 
 def flash_attention(qg, k, v, q_pos, kbias, window: float,

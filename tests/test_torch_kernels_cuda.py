@@ -7,12 +7,16 @@ every launch), the Table 6 path's bit-unpack, counts and single-table
 gather, a front door serving through the gathers with a retried
 fault, and sharded serving with its shards on streams of cuda:0 (bit-exact
 against the CPU, a refresh and a replica drop while launches wait on other
-streams, a pool naming another card refused). The LM training path (no
-hand-written kernel: cuBLAS products and PyTorch ops): one train step and
-each optimizer's update on the card against the CPU for a dense, a MoE, an
-ssm and an audio arch (``train.parity``), the flash backward against
-direct attention, a checkpointed ``Trainer`` run resumed on the card, and
-the training entry points on ``cuda`` when no device is named.
+streams, a pool naming another card refused). Flash attention's kernels
+(forward, dQ, dK/dV) against the plain version and float32 direct
+attention at the two benchmark cells' layer shapes, over windows, pinned
+positions and fully masked rows, their launch counts and refusals. The LM
+training path (cuBLAS products, PyTorch ops and the flash kernels): one
+train step and each optimizer's update on the card against the CPU for a
+dense, a MoE, an ssm and an audio arch (``train.parity``), the flash
+backward against direct attention, a checkpointed ``Trainer`` run resumed
+on the card, and the training entry points on ``cuda`` when no device is
+named.
 
 Needs a CUDA device and ``nvcc`` (the kernels build at first use); every
 test skips without a card. Imports neither JAX nor the reference package,
@@ -21,7 +25,9 @@ so it runs where only the port's dependencies are installed:
     python -m pytest tests/test_torch_kernels_cuda.py -q -m cuda
 """
 import itertools
+import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -37,6 +43,9 @@ from repro_torch.kernels.onehot_wide import ops as wide_ops
 from repro_torch.kernels.onehot_wide import ref as wide_ref
 from repro_torch.kernels.predicate_scan import ops as scan_ops
 from repro_torch.kernels.predicate_scan import ref as scan_ref
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke as cs  # noqa: E402  (phase 9F's flash check)
 
 DBS = edge_cases.DBS
 CARDS = (2, 3, 11, 200, 3000, 1000)    # most below 2**db: codes clamp
@@ -932,7 +941,7 @@ def test_flash_backward_on_card_matches_direct(cuda, window, dtype):
     """dq, dk, dv of the flash Function against autograd of direct softmax
     attention over the same values in float32 (chip_smoke's phase 9B
     bounds: 1e-4 of max |reference| in float32, 1e-2 in bf16)."""
-    from repro_torch.models.flash import _mask, flash_attention
+    from repro_torch.models.flash import flash_attention
     gen = torch.Generator(device=cuda)
     gen.manual_seed(3)
     b, s, kvh, g, dh = 2, 2048, 4, 2, 64
@@ -947,17 +956,209 @@ def test_flash_backward_on_card_matches_direct(cuda, window, dtype):
     leaves = [x.clone().requires_grad_() for x in ins]
     out = flash_attention(*leaves, q_pos, kbias, window, 1024)
     got = torch.autograd.grad(out, leaves, dout)
-    ref = [x.float().requires_grad_() for x in ins]
-    scores = torch.einsum("bskgd,btkd->bkgst", ref[0], ref[1]) + \
-        _mask(q_pos, q_pos, window, kbias)
-    out = torch.einsum("bkgst,btkd->bskgd", torch.softmax(scores, dim=-1),
-                       ref[2])
-    want = torch.autograd.grad(out, ref, dout.float())
+    want = _flash_grads(_direct_attention, *[x.float() for x in ins],
+                        dout.float(), q_pos, kbias, window, 1024)[1:]
     tol = 1e-4 if dtype == torch.float32 else 1e-2
     for a, r in zip(got, want):
         assert a.is_cuda and a.dtype == dtype
         assert float((a.float() - r).abs().max()) <= \
             tol * float(r.abs().max())
+
+
+# -- flash attention's kernels ------------------------------------------------------
+# the benchmark cells' attention layers: (B, S, KV, G, dh, T, kv_len)
+FLASH_CELLS = {"minicpm-2b": (2, 2048, 36, 1, 64, 2048, None),
+               "glm4-9b": (8, 1500, 2, 16, 128, 2048, 1500)}
+# bf16 against float32 direct attention over the same bf16 values, by
+# chip_smoke's flash_row_error (each row's error on its own scale): phase
+# 9F's limit, so both hold one rule
+FLASH_BF16_TOL = cs.FLASH_ROW_TOL
+# against the plain version, which reads up to 6.6e-2 from direct attention
+# itself (its chunks' bf16 p.v feed delta, and so dq): three times the
+# largest of 24 kernel readings against it (6.7e-2), below every planted
+# fault's reading against direct attention (0.97)
+FLASH_PLAIN_TOL = 0.2
+
+
+def _flash_inputs(cuda, b, s, kvh, g, dh, t, dtype, seed=0):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    qg = torch.randn((b, s, kvh, g, dh), generator=gen, device=cuda) * \
+        dh ** -0.5
+    k, v = (torch.randn((b, t, kvh, dh), generator=gen, device=cuda)
+            for _ in range(2))
+    dout = torch.randn((b, s, kvh, g, dh), generator=gen, device=cuda)
+    return [x.to(dtype) for x in (qg, k, v, dout)]
+
+
+def _flash_grads(fn, qg, k, v, dout, *rest):
+    leaves = [x.clone().requires_grad_() for x in (qg, k, v)]
+    out = fn(*leaves, *rest)
+    return [out.detach()] + list(torch.autograd.grad(out, leaves, dout))
+
+
+def _direct_attention(qg, k, v, q_pos, kbias, window, kv_chunk):
+    """Softmax over every score in float32, the flash function's value: a
+    masked score (at or below -5e29) weighs 0, a row with none kept is 0."""
+    from repro_torch.models.flash import NEG_INF, _mask
+    t = k.shape[1] - k.shape[1] % kv_chunk
+    k_pos = torch.arange(t, dtype=torch.float32, device=k.device)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k[:, :t].float())
+    scores = scores + _mask(q_pos, k_pos, window, kbias[:t])
+    p = torch.where(scores > NEG_INF / 2,
+                    torch.exp(scores - scores.amax(-1, keepdim=True)), 0.0)
+    probs = p / p.sum(-1, keepdim=True).clamp(min=1e-30)
+    return torch.einsum("bkgst,btkd->bskgd", probs, v[:, :t].float())
+
+
+def _max_rel(a, r) -> float:
+    return float((a.float() - r.float()).abs().max()) / \
+        float(r.float().abs().max())
+
+
+def _within(a, r, dtype, bf16_tol=FLASH_BF16_TOL) -> tuple[bool, float]:
+    """float32: max |a - r| within 1e-4 of max |r|; bf16: each row's error
+    on its own scale (``cs.flash_row_error``) within ``bf16_tol``."""
+    if dtype == torch.float32:
+        return _max_rel(a, r) <= 1e-4, _max_rel(a, r)
+    err = cs.flash_row_error(a, r)
+    return err <= bf16_tol, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0.0, 1024.0])
+@pytest.mark.parametrize("cell", sorted(FLASH_CELLS))
+def test_flash_kernels_match_plain_and_direct_on_card(cuda, cell, window):
+    """The forward and all three gradients of the kernels (bf16, the
+    cells' dtype) at each benchmark cell's layer shape: each row within
+    ``FLASH_BF16_TOL`` on its own scale against float32 direct attention
+    over the same bf16 values, and within ``FLASH_PLAIN_TOL`` against the
+    plain version (its chunks' bf16 p.v, the kernel's float32 one, both
+    bf16 outputs). One forward and one dQ and dK/dV launch each."""
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.models.flash import (_bwd_scan, _fwd_scan,
+                                          flash_attention)
+    b, s, kvh, g, dh, t, kv_len = FLASH_CELLS[cell]
+    qg, k, v, dout = _flash_inputs(cuda, b, s, kvh, g, dh, t,
+                                   torch.bfloat16)
+    q_pos = torch.arange(s, dtype=torch.float32, device=cuda)
+    kbias = torch.zeros(t, device=cuda)
+    if kv_len is not None:
+        kbias[kv_len:] = -1e30
+    flash_ops.reset_launches()
+    got = _flash_grads(flash_attention, qg, k, v, dout, q_pos, kbias,
+                       window, 1024)
+    assert flash_ops.LAUNCHES == {"flash_fwd": 1, "flash_bwd_dq": 1,
+                                  "flash_bwd_dkdv": 1}
+    out32, m, l = _fwd_scan(qg, k, v, q_pos, kbias, window, 1024)
+    plain = [out32.to(qg.dtype)] + list(_bwd_scan(
+        dout, qg, k, v, q_pos, kbias, out32, m, l, window, 1024))
+    direct = _flash_grads(_direct_attention, qg.float(), k.float(),
+                          v.float(), dout.float(), q_pos, kbias, window, 1024)
+    for name, a, p, r in zip(("out", "dq", "dk", "dv"), got, plain, direct):
+        assert a.dtype == torch.bfloat16 and a.shape == p.shape
+        for ref_, tol in ((r, FLASH_BF16_TOL), (p, FLASH_PLAIN_TOL)):
+            ok, err = _within(a, ref_, torch.bfloat16, tol)
+            assert ok, (name, err, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", sorted(cs.FLASH_FAULTS))
+def test_flash_check_catches_planted_faults_on_card(cuda, fault):
+    """The bf16 check has teeth: a fault planted in the live-tile bounds
+    (the first live key tile skipped past 1,024 keys, or the diagonal tile
+    left unmasked) reads above ``FLASH_BF16_TOL`` at the train cell's
+    layer shape, where the sound kernels read within it."""
+    b, s, kvh, g, dh, t, kv_len = FLASH_CELLS["minicpm-2b"]
+    ins = cs.flash_cell_inputs(cuda, 0, b, s, kvh, g, dh, t, kv_len)
+    want = cs.flash_direct_grads(*ins, 0.0)
+    sound = cs.flash_kernel_grads(*ins, 0.0)
+    bad = cs.flash_kernel_grads(*ins, 0.0, cs.FLASH_FAULTS[fault])
+    assert max(cs.flash_row_error(a, r) for a, r in zip(sound, want)) <= \
+        FLASH_BF16_TOL
+    assert max(cs.flash_row_error(a, r) for a, r in zip(bad, want)) > \
+        FLASH_BF16_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_pinned_positions_and_masked_rows_on_card(cuda, dtype):
+    """Queries pinned to T (``blocks._bidir_attention``: every key live),
+    a cache tail masked by ``kbias``, keys past the last whole chunk, and
+    query rows no key is kept for (positions below 0): the kernels against
+    float32 direct attention (float32 inputs within 1e-4 of max |ref|,
+    bf16 each row within ``FLASH_BF16_TOL``); a fully masked row's output
+    and dq are exactly 0, as are dk and dv of the masked and unread keys."""
+    from repro_torch.models.flash import flash_attention
+    b, kvh, g, t = 2, 2, 4, 2100
+    for dh in (16, 32, 64, 128):
+        s = 37
+        qg, k, v, dout = _flash_inputs(cuda, b, s, kvh, g, dh, t, dtype,
+                                       seed=dh)
+        pinned = torch.full((s,), 2048.0, device=cuda)
+        staggered = torch.arange(s, dtype=torch.float32, device=cuda) * 60 \
+            - 120.0                   # positions 0 and 1 below every key
+        kbias = torch.where(torch.arange(t, device=cuda) < 1900, 0.0, -1e30)
+        for q_pos, window in ((pinned, 0.0), (staggered, 0.0),
+                              (staggered, 300.0)):
+            got = _flash_grads(flash_attention, qg, k, v, dout, q_pos, kbias,
+                               window, 1024)
+            want = _flash_grads(_direct_attention, qg.float(), k.float(),
+                                v.float(), dout.float(), q_pos, kbias, window,
+                                1024)
+            for name, a, r in zip(("out", "dq", "dk", "dv"), got, want):
+                ok, err = _within(a, r, dtype)
+                assert ok, (dh, window, name, err)
+            assert not got[3][:, 1900:].any() and not got[2][:, 1900:].any()
+            if q_pos is staggered:
+                assert not got[0][:, :2].any() and not got[1][:, :2].any()
+
+
+@pytest.mark.cuda
+def test_flash_kernels_count_launches_and_refuse_on_card(cuda):
+    """``LAUNCHES`` moves once per kernel and call; the library gives the
+    wrapper its tiles for every head size and dtype it takes and refuses
+    another; a head size, dtype or device the kernels do not take raises
+    (no fallback); a fake tensor (the dry-run's trace) gets its outputs
+    and no launch."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.models.flash import flash_attention
+    for dh in flash_ops.HEAD_DIMS:
+        for np_ in (1, 3):
+            bm, bn, bq, bkv = flash_ops.tiles(dh, np_)
+            assert min(bm, bn, bq, bkv) >= 16 and bq <= 128
+    with pytest.raises(RuntimeError):
+        flash_ops.tiles(48, 1)
+    qg, k, v, dout = _flash_inputs(cuda, 1, 64, 2, 2, 64, 2048,
+                                   torch.bfloat16)
+    q_pos = torch.arange(1984, 2048, dtype=torch.float32, device=cuda)
+    kbias = torch.zeros(2048, device=cuda)
+    flash_ops.reset_launches()
+    for _ in range(3):
+        _flash_grads(flash_attention, qg, k, v, dout, q_pos, kbias, 0.0,
+                     1024)
+    assert flash_ops.LAUNCHES == {"flash_fwd": 3, "flash_bwd_dq": 3,
+                                  "flash_bwd_dkdv": 3}
+    for bad, err in ((dict(dh=48), ValueError), (dict(dh=256), ValueError),
+                     (dict(dtype=torch.float16), TypeError)):
+        dh, dtype = bad.get("dh", 64), bad.get("dtype", torch.bfloat16)
+        x = _flash_inputs(cuda, 1, 8, 1, 1, dh, 2048, dtype)
+        with pytest.raises(err):
+            flash_attention(*x[:3], q_pos[:8], kbias, 0.0, 1024)
+    with pytest.raises(ValueError):
+        flash_ops.forward(*[x.cpu() for x in (qg, k, v, q_pos, kbias)], 0.0,
+                          1024)
+    flash_ops.reset_launches()
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        fake = [mode.from_tensor(x) for x in (qg, k, v, q_pos, kbias, dout)]
+        out, out32, m, l, bounds = flash_ops.forward(*fake[:5], 0.0, 1024)
+        grads = flash_ops.backward(fake[5], *fake[:5], out32, m, l, bounds,
+                                   0.0, 1024)
+    assert out.shape == qg.shape and m.shape == (1, 2, 2, 64)
+    assert [x.shape for x in grads] == [qg.shape, k.shape, v.shape]
+    assert flash_ops.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                                  "flash_bwd_dkdv": 0}
 
 
 def _train_setup(device=None):
